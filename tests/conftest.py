@@ -48,6 +48,8 @@ def pytest_configure(config):
     config.addinivalue_line(
         "markers", "full: slow tier — skipped unless TCSFM_FULL=1 or "
                    "-m full is passed")
+    config.addinivalue_line(
+        "markers", "cuda: needs an NVIDIA card; skips where there is none")
 
 
 def pytest_collection_modifyitems(config, items):
