@@ -14,8 +14,15 @@ Phases, each printing its elapsed seconds:
      weights; kernel launch counts, the same forward with the plain
      sampler, frames/s and peak memory;
   4. the same forward on the card and on the CPU at a small input, with
-     trained-like weights (``condition_like_trained``).
+     trained-like weights (``condition_like_trained``);
+  5. the second main path: the training step at the same shape (solver,
+     loss stack, gradients through both backward kernels, Adam), with
+     launch counts, step time, frames/s, peak memory, and the same step
+     with the plain sampler from the same state;
+  6. one training step on the card and on the CPU at a small input.
 
+Phase 2 also holds the sampler's two backward kernels (d_coords only,
+and d_coords + d_img) against their plain version.
 Prints the kernels' JSON line, then, as the last line,
 ``{"ok": true, "device": {...}}``. Any failed check raises and exits
 non-zero; a hang past the watchdog dumps a traceback and exits non-zero.
@@ -36,6 +43,18 @@ HBM_BYTES_PER_S = 3.35e12     # H100 SXM, NVIDIA data sheet
 F32_FLOPS_PER_S = 67e12       # H100 SXM f32 outside the tensor cores
 H, W, B, S, ITERS = 192, 640, 6, 2, 4
 KERNEL_TOL = 1e-5             # kernel vs plain: same arithmetic, same order
+BWD_COORDS_TOL = 1e-5         # of d_coords' largest magnitude: same order
+BWD_IMG_TOL = 1e-5            # d_img: atomics add in a changing order
+STEP_LOSS_TOL = 1e-6          # kernel- vs plain-sampler step: same forward
+STEP_GRAD_TOL = 1e-4          # relative L2 per gradient tensor
+REF_LOSS_TOL = 1e-5           # train step, card vs CPU, f32
+# f32 resolves this loss's gradient only to ~1e-2 relative L2 (abs() of
+# near-equal neighbours flips sign under rounding; measured on the CPU:
+# the port's and JAX's f32 gradients are each up to 1e-2 from float64), so
+# card vs CPU is held there at 5e-2 in f32, and at 1e-4 in float64
+REF_GRAD_TOL_F32 = 5e-2
+REF_GRAD_TOL_F64 = 1e-4
+TRAIN_WARMUP, TRAIN_TIMED = 2, 5
 CHAIN_TOL = 1e-5              # kernel- vs plain-sampler forward, pose chain
 DISP_TOL = 1e-6               # the two forwards run identical convs
 CPU_TOL = 1e-5                # card vs CPU: other conv algorithms and orders
@@ -137,6 +156,69 @@ def phase_kernels(torch, gs):
     return rows
 
 
+def phase_bwd_kernels(torch, gs):
+    """The backward kernels vs grid_sample_bwd_plain at the training
+    step's shapes: d_coords only at [24,192,640,3] (the solver's warps),
+    d_img for channel 3 at [24,192,640,4] (the loss warp)."""
+    import numpy as np
+
+    n = 2 * S * B
+    coords = torch.from_numpy(smoke_coords(n, H, W, seed=1)).cuda()
+    rows = {}
+    for name, c, grad_ch in (("grid_sample_bwd_coords", 3, ()),
+                             ("grid_sample_bwd_img", 4, (3,))):
+        rng = np.random.RandomState(10 + c)
+        img = torch.from_numpy(rng.rand(n, H, W, c).astype(np.float32)).cuda()
+        g = torch.from_numpy(rng.randn(n, H, W, c).astype(np.float32)).cuda()
+        d_coords, d_img = gs.grid_sample_bwd(img, coords, g, grad_ch)
+        ref_coords, ref_img = gs.grid_sample_bwd_plain(img, coords, g, grad_ch)
+        torch.cuda.synchronize()
+        scale = ref_coords.abs().max().item()
+        err = (d_coords - ref_coords).abs().max().item()
+        check(err <= BWD_COORDS_TOL * scale, f"{name}: d_coords max abs err "
+              f"{err} > {BWD_COORDS_TOL} x {scale}")
+        img_err = 0.0
+        if grad_ch:
+            img_err = (d_img - ref_img).abs().max().item()
+            check(img_err <= BWD_IMG_TOL, f"{name}: d_img max abs err "
+                  f"{img_err} > {BWD_IMG_TOL}")
+            check(d_img.abs().max().item() > 0, f"{name}: d_img is all 0")
+        mask = [bool(grad_ch), True]
+        lib_img, lib_g = img.permute(0, 3, 1, 2), g.permute(0, 3, 1, 2)
+
+        def library():
+            return torch.ops.aten.grid_sampler_2d_backward(
+                lib_g, lib_img, coords, 0, 0, False, mask)
+
+        lib_err = (library()[1] - d_coords).abs().max().item() / scale
+        ms = time_ms(lambda: gs.grid_sample_bwd(img, coords, g, grad_ch))
+        plain_ms = time_ms(lambda: gs.grid_sample_bwd_plain(
+            img, coords, g, grad_ch), iters=10)
+        library_ms = time_ms(library)
+        # each input read once, each output written once: img, coords, g;
+        # d_coords and the d_img channels (its zero-fill not counted)
+        planes = c + 2 + c + 2 + len(grad_ch)
+        nbytes = planes * n * H * W * 4
+        flops = n * H * W * (20 + 14 * c + 8 * len(grad_ch))
+        bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        ops_ms = flops / F32_FLOPS_PER_S * 1e3
+        bound_ms = max(bytes_ms, ops_ms)
+        rows[name] = dict(max_abs_err=max(err, img_err), ms=ms,
+                          plain_ms=plain_ms, bound_ms=bound_ms,
+                          bound_by="bytes" if bytes_ms >= ops_ms else
+                          "operations", library_ms=library_ms)
+        say("kernels", f"{name} [{n},{H},{W},{c}] grad_ch={grad_ch}: "
+            f"max|kernel-plain| d_coords {err:.3e} (limit {BWD_COORDS_TOL} "
+            f"x {scale:.3e}), d_img {img_err:.3e} (limit {BWD_IMG_TOL}); "
+            f"max|kernel-aten| d_coords {lib_err:.3e} of its magnitude; "
+            f"kernel {ms * 1e3:.2f} us (d_img zero-fill included), plain "
+            f"{plain_ms * 1e3:.2f} us, aten.grid_sampler_2d_backward "
+            f"{library_ms * 1e3:.2f} us; bound {bound_ms * 1e3:.2f} us "
+            f"({rows[name]['bound_by']}: {nbytes / 1e6:.2f} MB), kernel at "
+            f"{bound_ms / ms:.1%} of bound")
+    return rows
+
+
 def smoke_inputs(b, s, h, w, seed):
     import numpy as np
 
@@ -158,13 +240,14 @@ def phase_slice(torch, gs, cfg, build_models, coupled_forward):
                    for a in smoke_inputs(B, S, H, W, seed=0))
 
     torch.cuda.reset_peak_memory_stats()
-    gs.LAUNCHES = 0
+    zero_counts(gs)
     poses, poses_inv, disp, chain = coupled_forward(
         depth_net, pose_net, tgt, src, K, cfg)
     torch.cuda.synchronize()
-    launches = gs.LAUNCHES
-    check(launches == ITERS - 1, f"grid_sample kernel launched {launches} "
-          f"times in one coupled forward, expected {ITERS - 1}")
+    launches, *bwd = read_counts(gs)
+    check(launches == ITERS - 1 and bwd == [0, 0], f"grid_sample kernels "
+          f"launched (fwd, bwd_coords, bwd_img) {(launches, *bwd)} times in "
+          f"one coupled forward, expected {(ITERS - 1, 0, 0)}")
     say("slice", f"main path: grid_sample kernel launches {launches} "
         f"(expected {ITERS - 1}) in one coupled forward")
 
@@ -261,6 +344,211 @@ def phase_cpu_reference(torch, cfg, build_models, coupled_forward):
         f"(limit {CPU_TOL})")
 
 
+def train_batch(torch, b, s, h, w, seed, device):
+    """A seeded batch in the layout of bench.py: smooth clean frames and an
+    augmented stream (brightness/contrast jitter), KITTI-like K."""
+    import numpy as np
+
+    tgt, src, K = smooth_inputs(torch, b, s, h, w, seed)
+    batch = {"target_img": tgt, "source_imgs": src, "intrinsics_aug": K,
+             "target_img_aug": np.clip(tgt * 1.05 + 0.01, 0, 1),
+             "source_imgs_aug": np.clip(src * 0.95 + 0.02, 0, 1)}
+    return {k: torch.from_numpy(np.ascontiguousarray(v, np.float32)).to(device)
+            for k, v in batch.items()}
+
+
+def zero_counts(gs) -> None:
+    gs.LAUNCHES = gs.LAUNCHES_BWD_COORDS = gs.LAUNCHES_BWD_IMG = 0
+
+
+def read_counts(gs):
+    return gs.LAUNCHES, gs.LAUNCHES_BWD_COORDS, gs.LAUNCHES_BWD_IMG
+
+
+def grads_of(state):
+    return {f"{net}.{name}": p.grad
+            for net, m in (("depth", state.depth_net), ("pose", state.pose_net))
+            for name, p in m.named_parameters()}
+
+
+def compare_grads(ours, ref, limit, what):
+    """Relative L2 per tensor; a tensor whose reference gradient is 0 up to
+    1e-6 of the largest (an analytically zero one) must be as small."""
+    largest = max(g.norm().item() for g in ref.values())
+    worst = 0.0
+    for k, r in ref.items():
+        g = ours[k]
+        check(g is not None and r is not None, f"{what}: {k} has no grad")
+        if r.norm().item() <= 1e-6 * largest:
+            check(g.norm().item() <= 1e-5 * largest, f"{what}: {k} should "
+                  f"be ~0, norm {g.norm().item()}")
+            continue
+        err = ((g.double() - r.double()).norm() / r.double().norm()).item()
+        worst = max(worst, err)
+        check(err <= limit, f"{what}: {k} gradient relative L2 {err} > "
+              f"{limit}")
+    return worst
+
+
+def phase_train(torch, gs, cfg, create_train_state, train_step):
+    """The training step at full width, seeded weights with trained-like
+    conditioning: launch counts, finite losses, every parameter and
+    BatchNorm statistic moved, time, memory, and the same step with the
+    plain sampler from the same state."""
+    import copy
+    import dataclasses
+
+    state = create_train_state(cfg, device="cuda",
+                               generator=torch.Generator().manual_seed(0),
+                               steps_per_epoch=1000)
+    # training starts from a warm start (the reference trains from an
+    # ImageNet encoder): with the raw init's saturated disparity head most
+    # warps leave the image and the inverse term can fall under its guard
+    condition_like_trained(state.depth_net, torch)
+    batch = train_batch(torch, B, S, H, W, seed=4, device="cuda")
+    def tensors():
+        return {f"{net}.{k}": v for net, m in (("depth", state.depth_net),
+                                               ("pose", state.pose_net))
+                for k, v in m.state_dict().items()}
+
+    init = {k: v.detach().clone() for k, v in tensors().items()}
+    times = []
+    torch.cuda.reset_peak_memory_stats()
+    for i in range(TRAIN_WARMUP + TRAIN_TIMED):
+        zero_counts(gs)
+        t = time.perf_counter()
+        losses = train_step(state, batch)
+        torch.cuda.synchronize()
+        if i >= TRAIN_WARMUP:
+            times.append(time.perf_counter() - t)
+        counts = read_counts(gs)
+        check(counts == (ITERS, ITERS - 1, 1), f"step {i}: launches (fwd, "
+              f"bwd_coords, bwd_img) {counts}, expected "
+              f"{(ITERS, ITERS - 1, 1)}")
+        for k, v in losses.items():
+            check(bool(torch.isfinite(v)), f"step {i}: {k} = {v.item()}")
+        check(losses["l_reconstruct_inverse"].item() > 0,
+              f"step {i}: the inverse term is 0 (mean_on_mask guard)")
+    step_counts = counts  # the main path's own: the last timed step
+    say("train", f"main path: per training step launches (fwd, bwd_coords, "
+        f"bwd_img) {step_counts}, expected {(ITERS, ITERS - 1, 1)}, over "
+        f"{len(times) + TRAIN_WARMUP} steps; last losses " + ", ".join(
+            f"{k} {v.item():.6f}" for k, v in sorted(losses.items())))
+    med = statistics.median(times)
+    say("train", f"train step {H}x{W} B={B} S={S} iters={ITERS} f32: median "
+        f"{med * 1e3:.3f} ms over {len(times)} (min {min(times) * 1e3:.3f}, "
+        f"max {max(times) * 1e3:.3f}) -> {B / med:.2f} frames/s; peak memory "
+        f"{torch.cuda.max_memory_allocated() / 2**20:.1f} MiB")
+
+    grads = grads_of(state)
+    moved_params = moved_stats = 0
+    for k, v in tensors().items():
+        if k in grads:
+            # a parameter stays only if its gradient is exactly 0
+            check(not torch.equal(v, init[k]) or not grads[k].any(),
+                  f"parameter {k} did not move")
+            moved_params += not torch.equal(v, init[k])
+        elif "running" in k:
+            check(not torch.equal(v, init[k]), f"BatchNorm {k} did not move")
+            moved_stats += 1
+    say("train", f"{moved_params} of {len(grads)} parameters and "
+        f"{moved_stats} BatchNorm running statistics moved")
+
+    for label, extra in (("defaults", {}),
+                         ("depth terms on", dict(l_depth_consist=True,
+                                                 with_depth_mask=True))):
+        ours = copy.deepcopy(state)
+        ours.cfg = dataclasses.replace(cfg, **extra)
+        plain = copy.deepcopy(ours)
+        seen = {}
+
+        def recording(img, coords, tail=None):
+            if tail is not None and tail.requires_grad:
+                tail.register_hook(
+                    lambda g: seen.__setitem__("d_img", g.abs().max().item()))
+            return gs.grid_sample(img, coords, tail)
+
+        zero_counts(gs)
+        lk = train_step(ours, batch, sampler=recording)
+        torch.cuda.synchronize()
+        cmp_counts = read_counts(gs)
+        check(cmp_counts == (ITERS, ITERS - 1, 1),
+              f"{label}: launches {cmp_counts}")
+        lp = train_step(plain, batch, sampler=gs.grid_sample_plain)
+        loss_err = max(abs(lk[k].item() - lp[k].item()) for k in lk)
+        check(loss_err <= STEP_LOSS_TOL, f"{label}: kernel vs plain sampler "
+              f"step losses differ by {loss_err} > {STEP_LOSS_TOL}")
+        worst = compare_grads(grads_of(ours), grads_of(plain), STEP_GRAD_TOL,
+                              f"{label}: kernel vs plain sampler step")
+        depth_terms = bool(extra)
+        check((seen["d_img"] > 0) == depth_terms, f"{label}: the loss warp's "
+              f"source-depth d_img max {seen['d_img']}")
+        say("train", f"{label}: kernel- vs plain-sampler step from one state:"
+            f" max|loss diff| {loss_err:.3e} (limit {STEP_LOSS_TOL}), worst "
+            f"gradient relative L2 {worst:.3e} (limit {STEP_GRAD_TOL}); "
+            f"source-depth d_img max {seen['d_img']:.3e} (0 expected: "
+            f"{not depth_terms})")
+    return step_counts, B / med
+
+
+def phase_train_reference(torch, cfg, create_train_state, train_step,
+                          forward_loss, gs):
+    """One training step on the card and on the CPU, trained-like weights,
+    96x160, B=2, S=2 (each group keeps >10,000 valid pixels): f32 with
+    the kernels, then float64 with the plain sampler on both."""
+    import copy
+
+    b, s, h, w = 2, 2, 96, 160
+    states = {}
+    for dev in ("cpu", "cuda"):
+        st = create_train_state(cfg, device=dev,
+                                generator=torch.Generator().manual_seed(1))
+        condition_like_trained(st.depth_net, torch)
+        states[dev] = st
+    f64 = {dev: (copy.deepcopy(st.depth_net).double(),
+                 copy.deepcopy(st.pose_net).double())
+           for dev, st in states.items()}
+    batch = train_batch(torch, b, s, h, w, seed=5, device="cpu")
+    losses = {dev: train_step(st, batch) for dev, st in states.items()}
+    loss_err = max(abs(losses["cuda"][k].item() - losses["cpu"][k].item())
+                   for k in losses["cpu"])
+    check(loss_err <= REF_LOSS_TOL, f"train step card vs CPU: losses differ "
+          f"by {loss_err} > {REF_LOSS_TOL}")
+    check(losses["cuda"]["l_reconstruct_inverse"].item() > 0,
+          "train reference: the inverse term is 0")
+    stats_err = max(
+        (v.cpu() - states["cpu"].depth_net.state_dict()[k]).abs().max().item()
+        for k, v in states["cuda"].depth_net.state_dict().items()
+        if "running" in k)
+    check(stats_err <= REF_LOSS_TOL, f"BatchNorm statistics card vs CPU "
+          f"differ by {stats_err} > {REF_LOSS_TOL}")
+    cpu_grads = grads_of(states["cpu"])
+    worst32 = compare_grads({k: v.cpu() for k, v in
+                             grads_of(states["cuda"]).items()}, cpu_grads,
+                            REF_GRAD_TOL_F32, "train step card vs CPU, f32")
+
+    grads64 = {}
+    for dev, (dnet, pnet) in f64.items():
+        b64 = {k: v.to(dev, torch.float64) for k, v in batch.items()}
+        out, _ = forward_loss(cfg, dnet, pnet, b64, train=True,
+                              sampler=gs.grid_sample_plain)
+        out["total"].backward()
+        grads64[dev] = (out["total"].item(), {
+            f"{n}.{k}": p.grad.cpu() for n, m in (("depth", dnet),
+                                                  ("pose", pnet))
+            for k, p in m.named_parameters()})
+    total_err = abs(grads64["cuda"][0] - grads64["cpu"][0])
+    check(total_err <= 1e-9, f"float64 totals differ by {total_err}")
+    worst64 = compare_grads(grads64["cuda"][1], grads64["cpu"][1],
+                            REF_GRAD_TOL_F64, "train step card vs CPU, f64")
+    say("train reference", f"{h}x{w} B={b} S={s}, trained-like conditioning: "
+        f"f32 card (kernels) vs CPU max|loss diff| {loss_err:.2e} (limit "
+        f"{REF_LOSS_TOL}), BatchNorm stats {stats_err:.2e}, worst gradient "
+        f"relative L2 {worst32:.2e} (limit {REF_GRAD_TOL_F32}, f32 "
+        f"resolution); float64 (plain sampler) total diff {total_err:.2e}, "
+        f"worst gradient relative L2 {worst64:.2e} (limit {REF_GRAD_TOL_F64})")
+
+
 def main() -> int:
     faulthandler.dump_traceback_later(WATCHDOG_S, exit=True)
     import torch
@@ -273,6 +561,8 @@ def main() -> int:
     from tcsfm_torch.infer import build_models, coupled_forward
     from tcsfm_torch.ops import _build
     from tcsfm_torch.ops import grid_sample as gs
+    from tcsfm_torch.train.trainer import (create_train_state, forward_loss,
+                                           train_step)
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -294,6 +584,7 @@ def main() -> int:
 
     t = time.monotonic()
     rows = phase_kernels(torch, gs)
+    rows.update(phase_bwd_kernels(torch, gs))
     say("kernels", f"phase took {time.monotonic() - t:.2f} s")
     cfg = Config(iterations=ITERS, num_scales=1, minibatch=B,
                  img_resolution="med")
@@ -304,11 +595,32 @@ def main() -> int:
     t = time.monotonic()
     phase_cpu_reference(torch, cfg, build_models, coupled_forward)
     say("reference", f"phase took {time.monotonic() - t:.2f} s")
+    t = time.monotonic()
+    step_counts, _ = phase_train(torch, gs, cfg, create_train_state,
+                                 train_step)
+    say("train", f"phase took {time.monotonic() - t:.2f} s")
+    t = time.monotonic()
+    phase_train_reference(torch, Config(iterations=ITERS), create_train_state,
+                          train_step, forward_loss, gs)
+    say("train reference", f"phase took {time.monotonic() - t:.2f} s")
 
-    kernels = [dict(name="grid_sample_fwd", route="cuda",
-                    source="tcsfm_torch/ops/csrc/grid_sample.cu",
-                    replaces="tcsfm/ops/warp_mxu.py:470",
-                    launches=launches, **rows[3])]
+    bwd_src = "tcsfm_torch/ops/csrc/grid_sample_bwd.cu"
+    per_path = {"grid_sample_fwd": (launches, step_counts[0]),
+                "grid_sample_bwd_coords": (0, step_counts[1]),
+                "grid_sample_bwd_img": (0, step_counts[2])}
+    kernels = []
+    for name, source, replaces, row in (
+            ("grid_sample_fwd", "tcsfm_torch/ops/csrc/grid_sample.cu",
+             "tcsfm/ops/warp_mxu.py:470", rows[3]),
+            ("grid_sample_bwd_coords", bwd_src,
+             "tcsfm/ops/warp_mxu_grad.py:303", rows["grid_sample_bwd_coords"]),
+            ("grid_sample_bwd_img", bwd_src,
+             "tcsfm/ops/warp_mxu_grad.py:294", rows["grid_sample_bwd_img"])):
+        fwd, step = per_path[name]
+        kernels.append(dict(name=name, route="cuda", source=source,
+                            replaces=replaces, launches=fwd + step,
+                            launches_per_forward=fwd,
+                            launches_per_train_step=step, **row))
     print(json.dumps({"kernels": kernels}), flush=True)
     faulthandler.cancel_dump_traceback_later()
     print(json.dumps({"ok": True, "device": {

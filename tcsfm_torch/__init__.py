@@ -7,5 +7,7 @@ against it by ``tests/test_torch_*.py``. Importing the package builds
 nothing: the CUDA kernels are compiled at their first launch
 (``tcsfm_torch.ops._build``).
 
-Entry point: ``tcsfm_torch.infer`` (``build_models``, ``coupled_forward``).
+Entry points: ``tcsfm_torch.infer`` (``build_models``, ``coupled_forward``)
+and ``tcsfm_torch.train.trainer`` (``create_train_state``, ``train_step``,
+``eval_step``, ``Trainer``).
 """

@@ -1,10 +1,11 @@
-"""Inverse warping (counterpart of ``tcsfm/geom/warp.py:75-102, 211-243``).
+"""Inverse warping (counterpart of ``tcsfm/geom/warp.py:75-210``).
 
-backproject → rigid transform → project → bilinear sample, NHWC. The
-sampler is the port's ``grid_sample`` (the CUDA kernel on the card), with
-the semantics of the JAX package's unbanded XLA sampler. The banded MXU
-path's band-coverage mask has no counterpart: a GPU gather covers every
-pixel, so no pixel is invalidated for lying outside a band.
+backproject → rigid transform → project → bilinear sample, NHWC,
+differentiable. The sampler is the port's ``grid_sample`` (the CUDA
+kernels on the card), with the semantics of the JAX package's unbanded XLA
+sampler. The banded MXU path's band-coverage mask has no counterpart: a
+GPU gather covers every pixel, so no pixel is invalidated for lying
+outside a band.
 """
 
 from __future__ import annotations
@@ -17,7 +18,8 @@ from tcsfm_torch.geom.camera import backproject
 from tcsfm_torch.geom.se3 import pose_vec2mat
 from tcsfm_torch.ops.grid_sample import grid_sample
 
-Sampler = Callable[[torch.Tensor, torch.Tensor], torch.Tensor]
+# sampler(img, coords) or sampler(img, coords, tail): see ops.grid_sample
+Sampler = Callable[..., torch.Tensor]
 
 
 def _project_with_mask(cam_coords, K, pose_mat, h, w, zeros_padding=True):
@@ -51,11 +53,15 @@ def _project_with_mask(cam_coords, K, pose_mat, h, w, zeros_padding=True):
 
 def inverse_warp2(img: torch.Tensor, depth: torch.Tensor,
                   ref_depth: torch.Tensor, pose: torch.Tensor, K: torch.Tensor,
-                  sample_depth: bool = True, sampler: Sampler = grid_sample):
+                  sample_depth: bool = True,
+                  sampler: Sampler = grid_sample):
     """Warp a source image into the target frame using target depth + pose.
 
     Args:
-      img:       [B, H, W, 3] source image (sampled from).
+      img:       [B, H, W, 3] source image (sampled from). A data image (a
+                 camera frame), which does not require grad, gets no d_img:
+                 the sampler's backward computes only what autograd asks
+                 for, as ``inverse_warp2_mxu(img_grad=False)`` does.
       depth:     [B, H, W, 1] target-frame depth.
       ref_depth: [B, H, W, 1] source-frame depth (sampled from).
       pose:      [B, 6] pose vector [tx ty tz rx ry rz] (target→source).
@@ -64,7 +70,8 @@ def inverse_warp2(img: torch.Tensor, depth: torch.Tensor,
                  inference) and returns ``projected_depth`` None, as
                  ``tcsfm.geom.warp.inverse_warp2_mxu`` does.
       sampler:   the bilinear sampler; ``grid_sample`` launches the CUDA
-                 kernel on the card, ``grid_sample_plain`` is its plain twin.
+                 kernels on the card, ``grid_sample_plain`` is its plain
+                 twin.
 
     Returns:
       warped_img [B, H, W, 3], valid_mask [B, H, W, 1] float,
@@ -75,12 +82,14 @@ def inverse_warp2(img: torch.Tensor, depth: torch.Tensor,
     pose_mat = pose_vec2mat(pose[..., :6])
     coords, computed_depth, valid = _project_with_mask(cam, K, pose_mat, h, w)
     coords = coords.contiguous()
+    img = img.contiguous()
     if sample_depth:
         # one 4-channel call samples image and depth together, as the JAX
-        # MXU path packs them
-        sampled = sampler(torch.cat([img, ref_depth], -1), coords)
+        # MXU path packs them; the depth rides as the sampler's tail, so the
+        # d_img of a data image is never formed
+        sampled = sampler(img, coords, ref_depth)
         warped_img, projected_depth = sampled[..., :3], sampled[..., 3:4]
     else:
-        warped_img, projected_depth = sampler(img.contiguous(), coords), None
+        warped_img, projected_depth = sampler(img, coords), None
     valid_mask = valid[..., None].to(img.dtype)
     return warped_img, valid_mask, projected_depth, computed_depth[..., None]

@@ -9,11 +9,13 @@ OIHW; BatchNorm ``scale``/``bias``/``mean``/``var`` become
 ``weight``/``bias``/``running_mean``/``running_var``; each pose stage's
 GroupNorm becomes ``conv{i}.1``. The keys are the reference checkpoint's,
 so a converted or reference state dict loads with ``load_state_dict``.
+``grads_from_flax`` maps a gradient tree the same way, so gradients
+compare key by key.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Mapping, Tuple
+from typing import Dict, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
@@ -30,32 +32,43 @@ def _conv_w(k) -> torch.Tensor:
     return _t(np.asarray(k).transpose(3, 2, 0, 1))
 
 
-def _bn(sd: StateDict, prefix: str, params: Mapping, stats: Mapping) -> None:
+def _bn(sd: StateDict, prefix: str, params: Mapping,
+        stats: Optional[Mapping]) -> None:
     sd[f"{prefix}.weight"] = _t(params["scale"])
     sd[f"{prefix}.bias"] = _t(params["bias"])
-    sd[f"{prefix}.running_mean"] = _t(stats["mean"])
-    sd[f"{prefix}.running_var"] = _t(stats["var"])
-    sd[f"{prefix}.num_batches_tracked"] = torch.tensor(0)
+    if stats is not None:
+        sd[f"{prefix}.running_mean"] = _t(stats["mean"])
+        sd[f"{prefix}.running_var"] = _t(stats["var"])
+        sd[f"{prefix}.num_batches_tracked"] = torch.tensor(0)
 
 
-def depth_state_dict(params: Mapping, batch_stats: Mapping) -> StateDict:
-    """DepthNet params + batch_stats trees → DepthNet ``state_dict``."""
+def depth_state_dict(params: Mapping,
+                     batch_stats: Optional[Mapping]) -> StateDict:
+    """DepthNet params + batch_stats trees → DepthNet ``state_dict``; with
+    ``batch_stats`` None, the parameters' entries only."""
     sd: StateDict = {}
-    enc, est = params["encoder"], batch_stats["encoder"]
+    enc = params["encoder"]
+    est = (batch_stats or {}).get("encoder")
     sd["encoder.encoder.conv1.weight"] = _conv_w(enc["conv1"]["kernel"])
-    _bn(sd, "encoder.encoder.bn1", enc["bn1"], est["bn1"])
+    _bn(sd, "encoder.encoder.bn1", enc["bn1"],
+        None if est is None else est["bn1"])
     for layer in range(1, 5):
         for block in range(2):
-            f, fs = enc[f"layer{layer}_{block}"], est[f"layer{layer}_{block}"]
+            name = f"layer{layer}_{block}"
+            f = enc[name]
+
+            def stats(bn):
+                return None if est is None else est[name][bn]
+
             t = f"encoder.encoder.layer{layer}.{block}"
             sd[f"{t}.conv1.weight"] = _conv_w(f["Conv_0"]["kernel"])
-            _bn(sd, f"{t}.bn1", f["BatchNorm_0"], fs["BatchNorm_0"])
+            _bn(sd, f"{t}.bn1", f["BatchNorm_0"], stats("BatchNorm_0"))
             sd[f"{t}.conv2.weight"] = _conv_w(f["Conv_1"]["kernel"])
-            _bn(sd, f"{t}.bn2", f["BatchNorm_1"], fs["BatchNorm_1"])
+            _bn(sd, f"{t}.bn2", f["BatchNorm_1"], stats("BatchNorm_1"))
             if "Conv_2" in f:
                 sd[f"{t}.downsample.0.weight"] = _conv_w(f["Conv_2"]["kernel"])
                 _bn(sd, f"{t}.downsample.1", f["BatchNorm_2"],
-                    fs["BatchNorm_2"])
+                    stats("BatchNorm_2"))
 
     def refl_conv(flax_name: str, torch_prefix: str) -> None:
         c = params[flax_name]["Conv_0"]
@@ -98,3 +111,11 @@ def from_flax(params: Mapping, batch_stats: Mapping
     (depth ``state_dict``, pose ``state_dict``)."""
     return (depth_state_dict(params["depth"], batch_stats),
             pose_state_dict(params["pose"]))
+
+
+def grads_from_flax(grads: Mapping) -> Dict[str, StateDict]:
+    """A JAX gradient tree ``{"depth", "pose"}`` (the params' structure) →
+    ``{"depth": {name: grad}, "pose": {name: grad}}`` under the names of the
+    port's ``named_parameters()``, laid out as the port's parameters are."""
+    return {"depth": depth_state_dict(grads["depth"], None),
+            "pose": pose_state_dict(grads["pose"])}

@@ -11,7 +11,9 @@ reference's ``state_dict`` (``encoder.encoder.*``, ``depth_upconvs.{i}.1``,
 
 Images and disparities are NHWC at ``forward``/``decode``'s boundary, as in
 the JAX package; the skip features between ``encode`` and ``decode`` are
-NCHW.
+NCHW. ``.train()`` is the JAX package's ``train=True``: the encoder's
+BatchNorm normalizes with batch statistics and updates its running ones by
+Flax's rule (``layers.BatchNorm2d``).
 """
 
 from __future__ import annotations

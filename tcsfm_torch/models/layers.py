@@ -30,6 +30,36 @@ class ReflConv(nn.Module):
         return self.conv(F.pad(x, (p, p, p, p), mode="reflect"))
 
 
+class BatchNorm2d(nn.BatchNorm2d):
+    """BatchNorm with Flax's running-statistics rule (``resnet.py:39-41``).
+
+    Eval mode is ``nn.BatchNorm2d``'s (running statistics, eps 1e-5). In
+    train mode the batch statistics normalize, and the running ones move
+    as ``flax.linen.BatchNorm(momentum=0.9)`` moves them:
+    ``r = 0.9 * r + 0.1 * batch`` with the *biased* batch variance, where
+    ``nn.BatchNorm2d`` would use the unbiased one (n/(n-1) larger: 36/35
+    at layer4 of six 64x96 images). The update runs under ``no_grad``.
+    """
+
+    MOMENTUM = 0.9    # Flax's: the weight of the old running value
+
+    def __init__(self, channels: int):
+        super().__init__(channels, eps=1e-5)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.training:
+            return super().forward(x)
+        with torch.no_grad():
+            var, mean = torch.var_mean(x, dim=(0, 2, 3), correction=0)
+            self.running_mean.mul_(self.MOMENTUM).add_(
+                mean, alpha=1.0 - self.MOMENTUM)
+            self.running_var.mul_(self.MOMENTUM).add_(
+                var, alpha=1.0 - self.MOMENTUM)
+            self.num_batches_tracked.add_(1)
+        return F.batch_norm(x, None, None, self.weight, self.bias,
+                            training=True, eps=self.eps)
+
+
 class WSConv(nn.Conv2d):
     """Weight-standardized conv, zero padding (``layers.py:301-377``).
 

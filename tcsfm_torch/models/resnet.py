@@ -3,7 +3,9 @@
 torchvision's layout and names: conv1 (7x7, s2) → bn1 → ReLU → maxpool
 (3x3, s2, pad 1) → layer1..layer4 of two BasicBlocks each at
 [64, 128, 256, 512] channels, emitting the 5 skip features the decoder
-reads. BatchNorm runs in eval mode (running statistics, eps 1e-5).
+reads. BatchNorm (eps 1e-5) uses the running statistics in eval mode; in
+train mode it normalizes with the batch's and updates the running ones by
+Flax's rule (``layers.BatchNorm2d``).
 """
 
 from __future__ import annotations
@@ -13,20 +15,22 @@ from typing import List
 import torch
 from torch import nn
 
+from tcsfm_torch.models.layers import BatchNorm2d
+
 
 class BasicBlock(nn.Module):
     def __init__(self, in_channels: int, channels: int, stride: int = 1):
         super().__init__()
         self.conv1 = nn.Conv2d(in_channels, channels, 3, stride, 1, bias=False)
-        self.bn1 = nn.BatchNorm2d(channels, eps=1e-5)
+        self.bn1 = BatchNorm2d(channels)
         self.relu = nn.ReLU()
         self.conv2 = nn.Conv2d(channels, channels, 3, 1, 1, bias=False)
-        self.bn2 = nn.BatchNorm2d(channels, eps=1e-5)
+        self.bn2 = BatchNorm2d(channels)
         self.downsample = None
         if stride != 1 or in_channels != channels:
             self.downsample = nn.Sequential(
                 nn.Conv2d(in_channels, channels, 1, stride, bias=False),
-                nn.BatchNorm2d(channels, eps=1e-5))
+                BatchNorm2d(channels))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         y = self.relu(self.bn1(self.conv1(x)))
@@ -43,7 +47,7 @@ class ResNet18Encoder(nn.Module):
     def __init__(self, in_channels: int = 3):
         super().__init__()
         self.conv1 = nn.Conv2d(in_channels, 64, 7, 2, 3, bias=False)
-        self.bn1 = nn.BatchNorm2d(64, eps=1e-5)
+        self.bn1 = BatchNorm2d(64)
         self.relu = nn.ReLU()
         self.maxpool = nn.MaxPool2d(3, 2, 1)
         prev = 64

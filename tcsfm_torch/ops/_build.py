@@ -1,7 +1,8 @@
 """Build and load the port's CUDA kernels: one ``nvcc`` call, bound with ctypes.
 
 Every source under ``csrc/`` has a plain C interface (no PyTorch headers),
-so one ``nvcc`` call compiles them all into a shared library in seconds.
+so one ``nvcc`` call compiles all ``*.cu`` (which include the ``*.cuh``
+headers beside them) into a shared library in seconds.
 PyTorch's own extension builder is not used: a source that includes
 PyTorch's headers takes minutes to compile, it needs ``ninja``, and it can
 wait forever on a stale lock file.
@@ -27,8 +28,10 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "tcsfm_torch"
 LIB_NAME = "libtcsfm_kernels.so"
 NVCC_TIMEOUT_S = 300    # a hung compiler is killed rather than waited on
+# --threads 0: the one call compiles its sources in parallel
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v", "--threads",
+              "0")
 
 _lib: ctypes.CDLL | None = None
 build_log = ""          # nvcc's output of the build this process ran, if any
@@ -57,9 +60,9 @@ def _sources() -> list[Path]:
 
 
 def library_path() -> Path:
-    """Where the library for the current sources and flags lives."""
+    """Where the library for the current sources, headers and flags lives."""
     h = hashlib.sha256()
-    for src in _sources():
+    for src in sorted(CSRC.glob("*.cu*")):
         h.update(src.name.encode())
         h.update(src.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
@@ -94,8 +97,14 @@ def load() -> ctypes.CDLL:
     global _lib
     if _lib is None:
         lib = ctypes.CDLL(str(build()))
-        p, i = ctypes.c_void_p, ctypes.c_int
+        p, i, u = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint
         lib.tcsfm_grid_sample_fwd.argtypes = [p, p, p, i, i, i, i, p]
         lib.tcsfm_grid_sample_fwd.restype = i
+        lib.tcsfm_grid_sample_bwd_coords.argtypes = [p, p, p, p,
+                                                     i, i, i, i, p]
+        lib.tcsfm_grid_sample_bwd_coords.restype = i
+        lib.tcsfm_grid_sample_bwd.argtypes = [p, p, p, p, p, u,
+                                              i, i, i, i, i, p]
+        lib.tcsfm_grid_sample_bwd.restype = i
         _lib = lib
     return _lib

@@ -1,6 +1,7 @@
-"""Where the coupled forward's time goes on the card.
+"""Where the coupled forward's, or the training step's, time goes on the
+card.
 
-    python -m tcsfm_torch.profile_forward [--iters 5] [--tf32]
+    python -m tcsfm_torch.profile_forward [--iters 5] [--tf32] [--train]
 
 Runs the main path (med res 192x640, B=6, S=2, 4 iterations, f32, seeded
 random weights) and prints: the forward's median wall time, the device
@@ -9,6 +10,16 @@ CUDA events, and, from ``torch.profiler``, the device-busy share of the
 profiled window and the top device kernels. ``--tf32`` lets cuDNN
 convolutions run in TF32 (PyTorch's default); without it they run in full
 f32, as ``chip_smoke.py`` runs them.
+
+``--train`` splits the training step at the same shape instead: the whole
+step's median device time, and the device time of each piece run alone at
+the step's shapes (CUDA events): the depth net forward+backward on the
+3B images (train-mode BatchNorm), the pose net's 4 forward+backward passes
+on the 2SB pairs, the solver's sampler kernels (3 forward, 3 d_coords-only
+backward), the loss stack forward+backward with its own warp (1 forward,
+1 d_img backward), the optimizer update, and the rest (the step minus the
+pieces: the solver's and the warps' glue, the backward of the packing);
+then the profiler's top kernels of the step.
 Needs the card.
 """
 
@@ -24,7 +35,9 @@ from torch.profiler import ProfilerActivity, profile
 
 from tcsfm_torch.config import Config
 from tcsfm_torch.infer import build_models, coupled_forward
-from tcsfm_torch.ops.grid_sample import grid_sample
+from tcsfm_torch.losses.photometric import compute_losses
+from tcsfm_torch.ops.grid_sample import grid_sample, grid_sample_bwd
+from tcsfm_torch.train.trainer import create_train_state, train_step
 from tcsfm_torch.solver.coupled import solve_disp, solve_pose_iteratively
 from tcsfm_torch.utils.helpers import disp_to_depth
 
@@ -36,15 +49,127 @@ def _device_us(evt) -> float:
     return 0.0
 
 
+def _median_event_ms(fn, iters: int) -> float:
+    """Median device ms of ``fn()`` over ``iters`` runs after one warm-up,
+    with CUDA events around each run."""
+    fn()
+    pairs = []
+    for _ in range(iters):
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in "se")
+        start.record()
+        fn()
+        end.record()
+        pairs.append((start, end))
+    torch.cuda.synchronize()
+    return statistics.median(a.elapsed_time(z) for a, z in pairs)
+
+
+def _top_kernels(run, iters: int, what: str) -> None:
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        for _ in range(iters):
+            run()
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t) * 1e6
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy_us = sum(_device_us(e) for e in kernels)
+    if busy_us == 0.0:
+        print("the profiler recorded no device time: busy share not measured")
+        return
+    print(f"profiled {iters} {what}s: wall {wall_us / iters / 1e3:.3f}"
+          f" ms/{what}, kernel time {busy_us / iters / 1e3:.3f} "
+          f"ms/{what} = {busy_us / wall_us:.1%} of wall")
+    if busy_us > wall_us:
+        print("kernels overlapped (their sum exceeds the wall time): device "
+              "busy share not measured")
+    print(f"top device kernels (ms/{what}, calls/{what}):")
+    for e in sorted(kernels, key=_device_us, reverse=True)[:15]:
+        print(f"  {_device_us(e) / iters / 1e3:8.3f} "
+              f"{e.count // iters:4d}  {e.key[:110]}")
+
+
+def train_split(args) -> None:
+    """The training step's device time, whole and by piece."""
+    cfg = Config(iterations=4, minibatch=6)
+    h, w = cfg.image_size
+    b, s = cfg.minibatch, cfg.num_source_imgs
+    n = 2 * s * b
+    state = create_train_state(cfg)
+    rng = np.random.RandomState(0)
+
+    def rand(*shape):
+        return torch.from_numpy(rng.rand(*shape).astype(np.float32)).cuda()
+
+    K = torch.tensor([[0.6 * w, 0, w / 2], [0, 0.6 * w, h / 2.5], [0, 0, 1]],
+                     device="cuda").expand(b, 3, 3).contiguous()
+    tgt, src = rand(b, h, w, 3), rand(s, b, h, w, 3)
+    batch = {"target_img": tgt, "target_img_aug": tgt, "source_imgs": src,
+             "source_imgs_aug": src, "intrinsics_aug": K}
+    step_ms = _median_event_ms(lambda: train_step(state, batch), args.iters)
+
+    imgs, pairs = rand((s + 1) * b, h, w, 3), rand(n, h, w, 6)
+
+    def depth():
+        state.depth_net.train()
+        out = state.depth_net(imgs)[0]
+        out.backward(torch.ones_like(out))
+
+    def pose():
+        for _ in range(cfg.iterations):
+            state.pose_net(pairs).sum().backward()
+
+    xs, ys = np.meshgrid(np.arange(w), np.arange(h))
+    ident = np.stack([(2 * xs + 1) / w - 1, (2 * ys + 1) / h - 1], -1)
+    coords = torch.from_numpy((ident + rng.uniform(-0.01, 0.01, (n, h, w, 2)))
+                              .astype(np.float32)).cuda()
+    img3, g3 = rand(n, h, w, 3), rand(n, h, w, 3)
+
+    def sampler():
+        for _ in range(cfg.iterations - 1):
+            grid_sample(img3, coords)
+        for _ in range(cfg.iterations - 1):
+            grid_sample_bwd(img3, coords, g3)
+
+    disps = [[(0.05 + 0.1 * rand(b, h, w, 1)).requires_grad_(True)]
+             for _ in range(s + 1)]
+    poses = (0.01 * rand(s, b, 6)).requires_grad_(True)
+
+    def loss():
+        out = compute_losses(cfg, src, tgt, poses, -poses, disps, K)
+        out["total"].backward()
+
+    parts = {"depth net fwd+bwd": depth, "pose net x4 fwd+bwd": pose,
+             "sampler, solver (3 fwd, 3 bwd)": sampler,
+             "loss fwd+bwd (1 fwd, 1 d_img bwd)": loss,
+             "optimizer": state.optimizer.step}
+    times = {k: _median_event_ms(fn, args.iters) for k, fn in parts.items()}
+    print(f"{torch.cuda.get_device_name(0)}; TF32 convs {args.tf32}; train "
+          f"step {h}x{w} B={b} S={s} iters={cfg.iterations}: median device "
+          f"{step_ms:.3f} ms over {args.iters} -> {b / step_ms * 1e3:.2f} "
+          f"frames/s")
+    print("device ms of each piece run alone at the step's shapes:")
+    for k, t in times.items():
+        print(f"  {k:<36} {t:9.3f}  {t / step_ms:6.1%}")
+    rest = step_ms - sum(times.values())
+    print(f"  {'rest (step - pieces)':<36} {rest:9.3f}  {rest / step_ms:6.1%}")
+    _top_kernels(lambda: train_step(state, batch), args.iters, "step")
+
+
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--iters", type=int, default=5)
     ap.add_argument("--tf32", action="store_true")
+    ap.add_argument("--train", action="store_true",
+                    help="split the training step instead of the forward")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile_forward needs an NVIDIA card")
     torch.backends.cudnn.allow_tf32 = args.tf32
     torch.backends.cuda.matmul.allow_tf32 = False
+    if args.train:
+        train_split(args)
+        return
 
     cfg = Config(iterations=4, minibatch=6)
     h, w = cfg.image_size
@@ -121,28 +246,7 @@ def main(argv=None) -> None:
     print(f"  {'rest':<10} {rest:9.3f}  {rest / whole:6.1%}  "
           f"(packing, disp_to_depth, projection)")
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t = time.perf_counter()
-        for _ in range(args.iters):
-            run()
-        torch.cuda.synchronize()
-        wall_us = (time.perf_counter() - t) * 1e6
-    kernels = [e for e in prof.key_averages()
-               if e.device_type == torch.autograd.DeviceType.CUDA]
-    busy_us = sum(_device_us(e) for e in kernels)
-    if busy_us == 0.0:
-        print("the profiler recorded no device time: busy share not measured")
-        return
-    print(f"profiled {args.iters} forwards: wall {wall_us / args.iters / 1e3:.3f}"
-          f" ms/forward, kernel time {busy_us / args.iters / 1e3:.3f} "
-          f"ms/forward = {busy_us / wall_us:.1%} of wall")
-    if busy_us > wall_us:
-        print("kernels overlapped (their sum exceeds the wall time): device "
-              "busy share not measured")
-    print("top device kernels (ms/forward, calls/forward):")
-    for e in sorted(kernels, key=_device_us, reverse=True)[:15]:
-        print(f"  {_device_us(e) / args.iters / 1e3:8.3f} "
-              f"{e.count // args.iters:4d}  {e.key[:110]}")
+    _top_kernels(run, args.iters, "forward")
 
 
 if __name__ == "__main__":

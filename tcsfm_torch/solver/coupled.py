@@ -1,14 +1,16 @@
-"""The coupled depth↔pose solver, inference forward (counterpart of
-``tcsfm/solver/coupled.py:46-253``).
+"""The coupled depth↔pose solver (counterpart of
+``tcsfm/solver/coupled.py:46-253``), differentiable end to end.
 
 Sources are a stacked axis [S, B, ...]; all forward and inverse pairs go
 through the pose net as ONE batch of 2·S·B (source-major: forward pairs
 first, then inverse pairs). The iteration loop is a Python loop over
-``num_iter``. This slice ports the pose-only path (``return_errors=False``
-in the JAX package): its pose-only warps skip resampling the source depth,
+``num_iter``. The port has the pose-only path (``return_errors=False`` in
+the JAX package): its pose-only warps skip resampling the source depth,
 and the last iteration skips its re-warp, so ``num_iter`` iterations make
-``num_iter - 1`` warps. The error products (``return_errors=True``) need
-``ssim_loss`` and come with the loss slice.
+``num_iter - 1`` warps. Under autograd (the training step) each warp's
+backward is the sampler's d_coords-only kernel: the warped images are
+camera frames. The error products (``return_errors=True``) come with PFT;
+``remat`` (recomputing each iteration in the backward) is not ported.
 """
 
 from __future__ import annotations

@@ -1,4 +1,5 @@
-"""The port's CUDA kernels against their plain versions, on the card.
+"""The port's CUDA kernels against their plain versions, and the training
+step through them, on the card.
 
 Marked ``cuda``: each test asks the ``cuda`` fixture, which skips where
 there is no card. This file imports no JAX, so it also runs where JAX is
@@ -6,9 +7,13 @@ not installed:
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py -q
 
-Tolerance atol 1e-5 (the kernel repeats the plain version's f32 arithmetic
-in the same order; it has measured bit-equal on an H100).
+Tolerances: forward atol 1e-5 and backward d_coords 1e-6 of its largest
+magnitude (each kernel repeats its plain version's f32 arithmetic in the
+same order; the forward has measured bit-equal on an H100); d_img 1e-5
+(atomics add in an order that changes from run to run).
 """
+
+import copy
 
 import numpy as np
 import pytest
@@ -17,6 +22,7 @@ import torch
 from tcsfm_torch.config import Config
 from tcsfm_torch.infer import build_models, coupled_forward
 from tcsfm_torch.ops import grid_sample as gs
+from tcsfm_torch.train.trainer import create_train_state, train_step
 
 pytestmark = pytest.mark.cuda
 
@@ -52,11 +58,79 @@ def test_kernel_matches_plain(cuda, shape):
     assert (out - ref).abs().max().item() <= 1e-5
 
 
-def test_kernel_refuses_grad(cuda):
-    img, coords = _inputs((1, 8, 8, 3), 1, cuda)
-    img.requires_grad_(True)
-    with pytest.raises(NotImplementedError):
-        gs.grid_sample(img, coords)
+@pytest.mark.parametrize("grad_ch", [(), (3,), (0, 1, 2, 3)])
+@pytest.mark.parametrize("shape", [(2, 31, 45, 4), (3, 17, 23, 4),
+                                   (24, 192, 640, 4)])
+def test_bwd_kernel_matches_plain(cuda, shape, grad_ch):
+    """d_coords bit for bit in the kernel's order (limit 1e-6 of its largest
+    magnitude), d_img within 1e-5 (atomics sum in another order)."""
+    img, coords = _inputs(shape, 3, cuda)
+    g = torch.randn(shape, generator=torch.Generator().manual_seed(4)).to(cuda)
+    counters = (gs.LAUNCHES_BWD_COORDS, gs.LAUNCHES_BWD_IMG)
+    d_coords, d_img = gs.grid_sample_bwd(img, coords, g, grad_ch)
+    torch.cuda.synchronize()
+    launched = (gs.LAUNCHES_BWD_COORDS - counters[0],
+                gs.LAUNCHES_BWD_IMG - counters[1])
+    assert launched == ((0, 1) if grad_ch else (1, 0))
+    ref_coords, ref_img = gs.grid_sample_bwd_plain(img, coords, g, grad_ch)
+    scale = ref_coords.abs().max().item()
+    assert (d_coords - ref_coords).abs().max().item() <= 1e-6 * scale
+    if grad_ch:
+        assert d_img.shape == shape[:3] + (len(grad_ch),)
+        assert (d_img - ref_img).abs().max().item() <= 1e-5
+    else:
+        assert d_img is None
+
+
+def test_autograd_picks_the_kernel(cuda):
+    """Only coords need a gradient: the d_coords kernel; a differentiable
+    tail behind a data image: the d_img kernel for the tail alone."""
+    img, coords = _inputs((2, 16, 24, 4), 5, cuda)
+    rgb, depth = img[..., :3].contiguous(), img[..., 3:].contiguous()
+    coords.requires_grad_(True)
+    before = (gs.LAUNCHES, gs.LAUNCHES_BWD_COORDS, gs.LAUNCHES_BWD_IMG)
+    gs.grid_sample(rgb, coords).sum().backward()
+    assert (gs.LAUNCHES, gs.LAUNCHES_BWD_COORDS, gs.LAUNCHES_BWD_IMG) == (
+        before[0] + 1, before[1] + 1, before[2])
+    depth.requires_grad_(True)
+    out = gs.grid_sample(rgb, coords, depth)
+    out.backward(torch.ones_like(out))
+    assert (gs.LAUNCHES_BWD_COORDS, gs.LAUNCHES_BWD_IMG) == (
+        before[1] + 1, before[2] + 1)
+    assert rgb.grad is None and depth.grad.abs().max().item() > 0
+    ref = gs.grid_sample_bwd_plain(img, coords.detach(),
+                                   torch.ones_like(img), (3,))[1]
+    assert (depth.grad - ref).abs().max().item() <= 1e-5
+
+
+def test_train_step_on_card(cuda):
+    """One step with the kernels and one with the plain sampler from the
+    same state (chip_smoke.py's seeded, trained-like conditioning, with the
+    depth terms on): 4 forward, 3 d_coords and 1 d_img launches; the same
+    losses (the forward kernel is bit-equal to its plain version) and
+    gradients within 1e-4 relative L2."""
+    import chip_smoke
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = Config(iterations=4, l_depth_consist=True, with_depth_mask=True)
+    state = create_train_state(cfg, generator=torch.Generator().manual_seed(0))
+    chip_smoke.condition_like_trained(state.depth_net, torch)
+    plain = copy.deepcopy(state)
+    batch = chip_smoke.train_batch(torch, 2, 2, 96, 160, seed=6,
+                                   device="cuda")
+    before = (gs.LAUNCHES, gs.LAUNCHES_BWD_COORDS, gs.LAUNCHES_BWD_IMG)
+    losses = train_step(state, batch)
+    torch.cuda.synchronize()
+    assert (gs.LAUNCHES - before[0], gs.LAUNCHES_BWD_COORDS - before[1],
+            gs.LAUNCHES_BWD_IMG - before[2]) == (4, 3, 1)
+    ref = train_step(plain, batch, sampler=gs.grid_sample_plain)
+    for k in losses:
+        assert torch.isfinite(losses[k]) and abs(
+            losses[k].item() - ref[k].item()) <= 1e-6, k
+    chip_smoke.compare_grads(chip_smoke.grads_of(state),
+                             chip_smoke.grads_of(plain), 1e-4,
+                             "kernel vs plain sampler step")
 
 
 def test_coupled_forward_on_card(cuda):
