@@ -19,10 +19,19 @@ Phases, each printing its elapsed seconds:
      loss stack, gradients through both backward kernels, Adam), with
      launch counts, step time, frames/s, peak memory, and the same step
      with the plain sampler from the same state;
-  6. one training step on the card and on the CPU at a small input.
+  6. one training step on the card and on the CPU at a small input;
+  7. the third main path: the photometric refiners at full resolution
+     (``scripts/bench_refiners.py``'s bodies): the coupled forward at B=4,
+     S=2, 2 iterations, then ``window_ba`` (10 LM iterations) or
+     ``gauss_newton_pose`` (10); and ``chain_ba`` on a 12-frame block
+     with a 2-level pyramid; launch counts, falling costs, the same calls
+     with the plain sampler, ms per window and peak memory;
+  8. ``window_ba`` and ``gauss_newton_pose`` on the card and on the CPU at
+     a small input.
 
 Phase 2 also holds the sampler's two backward kernels (d_coords only,
-and d_coords + d_img) against their plain version.
+and d_coords + d_img) and its value+Jacobian kernel against their plain
+versions.
 Prints the kernels' JSON line, then, as the last line,
 ``{"ok": true, "device": {...}}``. Any failed check raises and exits
 non-zero; a hang past the watchdog dumps a traceback and exits non-zero.
@@ -55,6 +64,18 @@ REF_LOSS_TOL = 1e-5           # train step, card vs CPU, f32
 REF_GRAD_TOL_F32 = 5e-2
 REF_GRAD_TOL_F64 = 1e-4
 TRAIN_WARMUP, TRAIN_TIMED = 2, 5
+# the refiners: scripts/bench_refiners.py's shapes, window batch 4
+RB, RITERS, BLOCK, REFINE_TIMED = 4, 2, 12, 3
+GRADS_TOL = 1e-5              # gx, gy: of their largest magnitude
+REF_POSE_TOL = 1e-5           # kernel- vs plain-sampler refiner: poses,
+REF_DEPTH_TOL = 1e-5          # depths (relative to the largest) and
+REF_COST_TOL = 1e-6           # costs (relative): the kernels are bit-equal
+# to their plain twins, whose jvp does the same f32 arithmetic
+# (value launches, value+Jacobian launches) of one refiner call, iters=10:
+# _gn_blocks takes 1 value and 7 jvp launches, a cost evaluation 1 value
+# launch per residual family (window_ba 2 families, gauss_newton_pose 1,
+# chain_ba 3 per level, the coarse level 6 iterations)
+REFINER_LAUNCHES = {"ba": (44, 154), "gn": (21, 60), "chain": (102, 336)}
 CHAIN_TOL = 1e-5              # kernel- vs plain-sampler forward, pose chain
 DISP_TOL = 1e-6               # the two forwards run identical convs
 CPU_TOL = 1e-5                # card vs CPU: other conv algorithms and orders
@@ -219,6 +240,61 @@ def phase_bwd_kernels(torch, gs):
     return rows
 
 
+def phase_grads_kernel(torch, gs):
+    """The value+Jacobian kernel vs grid_sample_with_grads_plain at the
+    refiners' shapes: the window batch [4,192,640,3] and chain_ba's
+    interior windows [10,192,640,3]."""
+    import numpy as np
+    import torch.nn.functional as F
+
+    rows = {}
+    for b in (RB, BLOCK - 2):
+        coords = torch.from_numpy(smoke_coords(b, H, W, seed=1)).cuda()
+        img = torch.from_numpy(np.random.RandomState(20 + b).rand(
+            b, H, W, 3).astype(np.float32)).cuda()
+        got = gs.grid_sample_with_grads(img, coords)
+        ref = gs.grid_sample_with_grads_plain(img, coords)
+        torch.cuda.synchronize()
+        err = (got[0] - ref[0]).abs().max().item()
+        check(err <= KERNEL_TOL, f"with_grads [{b},{H},{W},3]: out max abs "
+              f"err {err} > {KERNEL_TOL}")
+        errs = []
+        for name, a, r in (("gx", got[1], ref[1]), ("gy", got[2], ref[2])):
+            scale = r.abs().max().item()
+            e = (a - r).abs().max().item()
+            check(e <= GRADS_TOL * scale, f"with_grads [{b},{H},{W},3]: "
+                  f"{name} max abs err {e} > {GRADS_TOL} x {scale}")
+            errs.append(e / scale)
+        lib_img = img.permute(0, 3, 1, 2)
+
+        def context():
+            return F.grid_sample(lib_img, coords, mode="bilinear",
+                                 padding_mode="zeros", align_corners=False)
+
+        ms = time_ms(lambda: gs.grid_sample_with_grads(img, coords))
+        plain_ms = time_ms(lambda: gs.grid_sample_with_grads_plain(
+            img, coords), iters=10)
+        context_ms = time_ms(context)
+        nbytes = (3 + 2 + 9) * b * H * W * 4
+        flops = b * H * W * (18 + 3 * (7 + 12))
+        bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        ops_ms = flops / F32_FLOPS_PER_S * 1e3
+        bound_ms = max(bytes_ms, ops_ms)
+        rows[b] = dict(max_abs_err=max(err, *errs), ms=ms, plain_ms=plain_ms,
+                       bound_ms=bound_ms, bound_by="bytes" if bytes_ms >=
+                       ops_ms else "operations", library_ms=None,
+                       grid_sample_value_only_ms=context_ms)
+        say("kernels", f"grid_sample_with_grads [{b},{H},{W},3]: "
+            f"max|kernel-plain| out {err:.3e} (limit {KERNEL_TOL}), gx, gy "
+            f"{errs[0]:.3e}, {errs[1]:.3e} of their magnitude (limit "
+            f"{GRADS_TOL}); kernel {ms * 1e3:.2f} us, plain "
+            f"{plain_ms * 1e3:.2f} us, F.grid_sample value only (context, no "
+            f"library call gives the derivatives) {context_ms * 1e3:.2f} us; "
+            f"bound {bound_ms * 1e3:.2f} us ({rows[b]['bound_by']}: "
+            f"{nbytes / 1e6:.2f} MB), kernel at {bound_ms / ms:.1%} of bound")
+    return rows
+
+
 def smoke_inputs(b, s, h, w, seed):
     import numpy as np
 
@@ -359,10 +435,15 @@ def train_batch(torch, b, s, h, w, seed, device):
 
 def zero_counts(gs) -> None:
     gs.LAUNCHES = gs.LAUNCHES_BWD_COORDS = gs.LAUNCHES_BWD_IMG = 0
+    gs.LAUNCHES_FWD_GRADS = 0
 
 
 def read_counts(gs):
     return gs.LAUNCHES, gs.LAUNCHES_BWD_COORDS, gs.LAUNCHES_BWD_IMG
+
+
+def read_refine_counts(gs):
+    return gs.LAUNCHES, gs.LAUNCHES_FWD_GRADS
 
 
 def grads_of(state):
@@ -549,6 +630,185 @@ def phase_train_reference(torch, cfg, create_train_state, train_step,
         f"worst gradient relative L2 {worst64:.2e} (limit {REF_GRAD_TOL_F64})")
 
 
+def refiner_inputs(torch, cfg, build_models, seed):
+    """Seeded, trained-like networks and smooth frames for the refiners:
+    the window batch (target [RB,H,W,3], sources [2,RB,H,W,3], K) and a
+    12-frame block with per-pixel depths and small initial twists, as
+    scripts/bench_refiners.py makes them."""
+    import numpy as np
+
+    depth_net, pose_net = build_models(
+        cfg, device="cuda", generator=torch.Generator().manual_seed(seed))
+    condition_like_trained(depth_net, torch)
+    tgt, src, K = (torch.from_numpy(a).cuda()
+                   for a in smooth_inputs(torch, RB, 2, H, W, seed=seed))
+    rng = np.random.RandomState(seed)
+    frames = smooth_inputs(torch, BLOCK, 0, H, W, seed=seed + 1)[0]
+    block = (frames, (0.5 + rng.rand(BLOCK, H, W, 1)).astype(np.float32)
+             * 20.0, K[0].cpu().numpy(),
+             (0.005 * rng.randn(BLOCK - 2, 6)).astype(np.float32),
+             (0.005 * rng.randn(BLOCK - 2, 6)).astype(np.float32))
+    return depth_net, pose_net, (tgt, src, K), [
+        torch.from_numpy(np.ascontiguousarray(a)).cuda() for a in block]
+
+
+def forward_depths(torch, cfg, depth_net, pose_net, tgt, src, K):
+    """The coupled forward of run_sequential_pft's ba/gn bodies: depths of
+    the target and both sources [3,B,H,W,1] and the poses [2,B,6]."""
+    from tcsfm_torch.solver.coupled import solve_disp, solve_pose_iteratively
+    from tcsfm_torch.utils.helpers import disp_to_depth
+
+    with torch.no_grad():
+        disps = solve_disp(depth_net, tgt, src)
+        depths = torch.stack([disp_to_depth(d[0], cfg.min_depth,
+                                            cfg.max_depth)[1] for d in disps])
+        poses, _, _ = solve_pose_iteratively(cfg.iterations, depths, pose_net,
+                                             tgt, src, K)
+    return depths, poses
+
+
+def phase_refiners(torch, gs, build_models):
+    """The three refiner bodies at full resolution: launch counts, costs
+    falling in every window, kernel- vs plain-sampler agreement, times."""
+    from tcsfm_torch.config import Config
+    from tcsfm_torch.solver.ba import chain_ba, window_ba
+    from tcsfm_torch.solver.gauss_newton import gauss_newton_pose
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = Config(iterations=RITERS, num_scales=1, minibatch=RB,
+                 img_resolution="med")
+    depth_net, pose_net, (tgt, src, K), block = refiner_inputs(
+        torch, cfg, build_models, seed=7)
+
+    def forward():
+        return forward_depths(torch, cfg, depth_net, pose_net, tgt, src, K)
+
+    def ba(sampler=gs.grid_sample, fwd=None):
+        depths, poses = forward() if fwd is None else fwd
+        res = window_ba(poses[0], poses[1], depths[0], tgt, src[0], src[1],
+                        depths[1], depths[2], K, iters=10,
+                        depth_prior_weight=0.1, sampler=sampler)
+        return (res.pose_prev, res.pose_next), res.depth, res.cost
+
+    def gn(sampler=gs.grid_sample, fwd=None):
+        depths, poses = forward() if fwd is None else fwd
+        res = gauss_newton_pose(poses[1], tgt, src[1], depths[0], depths[2],
+                                K, iters=10, sampler=sampler)
+        return (res.pose,), None, res.cost
+
+    def chain(sampler=gs.grid_sample, fwd=None):
+        res = chain_ba(*block, iters=10, depth_prior_weight=0.1,
+                       pyramid_levels=2, sampler=sampler)
+        return (res.edge_pose,), res.depth, res.cost[:, None]
+
+    counts, ms_per_window = {}, {}
+    for name, body, windows, fwd_launches in (
+            ("ba", ba, RB, RITERS - 1), ("gn", gn, RB, RITERS - 1),
+            ("chain", chain, BLOCK - 2, 0)):
+        body()                                               # warm-up
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        zero_counts(gs)
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in "se")
+        start.record()
+        poses, depth, cost = body()
+        end.record()
+        torch.cuda.synchronize()
+        got = read_refine_counts(gs)
+        want = (REFINER_LAUNCHES[name][0] + fwd_launches,
+                REFINER_LAUNCHES[name][1])
+        check(got == want, f"{name}: launches (value, value+Jacobian) {got},"
+              f" expected {want}")
+        check(all(bool(torch.isfinite(p).all()) for p in poses)
+              and bool(torch.isfinite(cost).all()), f"{name}: non-finite")
+        check(bool((cost[-1] < cost[0]).all()), f"{name}: the cost did not "
+              f"fall in every window: {cost[0].tolist()} -> "
+              f"{cost[-1].tolist()}")
+        counts[name] = got
+        times = [start.elapsed_time(end)]
+        for _ in range(REFINE_TIMED - 1):
+            start.record()
+            body()
+            end.record()
+            torch.cuda.synchronize()
+            times.append(start.elapsed_time(end))
+        peak = torch.cuda.max_memory_allocated() / 2**20
+        if name != "chain":
+            fwd_ms = time_ms(lambda: forward_depths(
+                torch, cfg, depth_net, pose_net, tgt, src, K), iters=3,
+                warmup=1)
+        else:
+            fwd_ms = 0.0
+        med = statistics.median(times)
+        ms_per_window[name] = med / windows
+        say("refiners", f"{name}: launches (value, value+Jacobian) {got} "
+            f"(expected {want}); cost per window {cost[0].tolist()} -> "
+            f"{cost[-1].tolist()}; median {med:.3f} ms over {len(times)} "
+            f"(min {min(times):.3f}, max {max(times):.3f}) for {windows} "
+            f"windows -> {med / windows:.3f} ms per window"
+            + (f" (forward {fwd_ms:.3f} ms of it, refiner alone "
+               f"{(med - fwd_ms) / windows:.3f} ms per window)"
+               if fwd_ms else "") + f"; peak memory {peak:.1f} MiB")
+
+        # the same refiner call with the plain sampler, on the same inputs
+        # (one forward's outputs for ba/gn)
+        fwd = forward() if name != "chain" else None
+        poses, depth, cost = body(fwd=fwd)
+        p_poses, p_depth, p_cost = body(gs.grid_sample_plain, fwd=fwd)
+        pose_err = max((a - b).abs().max().item()
+                       for a, b in zip(poses, p_poses))
+        depth_err = 0.0 if depth is None else (
+            (depth - p_depth).abs().max() / p_depth.abs().max()).item()
+        cost_err = ((cost - p_cost).abs() / p_cost.abs()).max().item()
+        check(pose_err <= REF_POSE_TOL and depth_err <= REF_DEPTH_TOL
+              and cost_err <= REF_COST_TOL, f"{name}: kernel vs plain sampler"
+              f" poses {pose_err}, depths {depth_err}, costs {cost_err}")
+        say("refiners", f"{name}: kernel- vs plain-sampler call on the same "
+            f"inputs: max|pose diff| {pose_err:.3e} (limit {REF_POSE_TOL}), "
+            f"depth {depth_err:.3e} of the largest (limit {REF_DEPTH_TOL}), "
+            f"costs {cost_err:.3e} relative (limit {REF_COST_TOL})")
+    return counts, ms_per_window
+
+
+def phase_refiners_reference(torch, gs):
+    """window_ba and gauss_newton_pose on a small smooth scene on the card
+    (kernels) and on the CPU port (plain sampler)."""
+    import numpy as np
+
+    from tcsfm_torch.solver.ba import window_ba
+    from tcsfm_torch.solver.gauss_newton import gauss_newton_pose
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    b, h, w = 2, 64, 96
+    tgt, src, K = smooth_inputs(torch, b, 2, h, w, seed=8)
+    rng = np.random.RandomState(8)
+    depth = (2.0 + 3.0 * rng.rand(b, h, w, 1)).astype(np.float32)
+    pose = (0.01 * rng.randn(2, b, 6)).astype(np.float32)
+    worst = {}
+    for name, fields, call in (
+            ("window_ba", ("pose_prev", "pose_next"), lambda dev: window_ba(
+                pose[0], pose[1], depth, tgt, src[0], src[1], depth, depth, K,
+                iters=10, depth_prior_weight=0.1, device=dev)),
+            ("gauss_newton_pose", ("pose",), lambda dev: gauss_newton_pose(
+                pose[1], tgt, src[1], depth, depth, K, iters=10,
+                device=dev))):
+        card, cpu = call("cuda"), call("cpu")
+        pose_err = max((getattr(card, f).cpu() - getattr(cpu, f)).abs().max()
+                       .item() for f in fields)
+        cost_err = ((card.cost.cpu() - cpu.cost).abs()
+                    / cpu.cost.abs()).max().item()
+        check(pose_err <= CPU_TOL and cost_err <= CPU_TOL, f"{name} card vs "
+              f"CPU: poses {pose_err}, costs {cost_err} > {CPU_TOL}")
+        check(bool((cpu.cost[-1] < cpu.cost[0]).all()), f"{name}: cost did "
+              f"not fall on the CPU")
+        worst[name] = (pose_err, cost_err)
+    say("refiners reference", f"{h}x{w} B={b}, 10 iterations, card (kernels) "
+        "vs CPU (plain): " + "; ".join(
+            f"{k} max|pose diff| {p:.2e}, costs {c:.2e} relative"
+            for k, (p, c) in worst.items()) + f" (limit {CPU_TOL})")
+
+
 def main() -> int:
     faulthandler.dump_traceback_later(WATCHDOG_S, exit=True)
     import torch
@@ -585,6 +845,7 @@ def main() -> int:
     t = time.monotonic()
     rows = phase_kernels(torch, gs)
     rows.update(phase_bwd_kernels(torch, gs))
+    grads_rows = phase_grads_kernel(torch, gs)
     say("kernels", f"phase took {time.monotonic() - t:.2f} s")
     cfg = Config(iterations=ITERS, num_scales=1, minibatch=B,
                  img_resolution="med")
@@ -603,24 +864,40 @@ def main() -> int:
     phase_train_reference(torch, Config(iterations=ITERS), create_train_state,
                           train_step, forward_loss, gs)
     say("train reference", f"phase took {time.monotonic() - t:.2f} s")
+    t = time.monotonic()
+    refine_counts, _ = phase_refiners(torch, gs, build_models)
+    say("refiners", f"phase took {time.monotonic() - t:.2f} s")
+    t = time.monotonic()
+    phase_refiners_reference(torch, gs)
+    say("refiners reference", f"phase took {time.monotonic() - t:.2f} s")
 
+    fwd_src = "tcsfm_torch/ops/csrc/grid_sample.cu"
     bwd_src = "tcsfm_torch/ops/csrc/grid_sample_bwd.cu"
-    per_path = {"grid_sample_fwd": (launches, step_counts[0]),
-                "grid_sample_bwd_coords": (0, step_counts[1]),
-                "grid_sample_bwd_img": (0, step_counts[2])}
+    no_refine = {k: 0 for k in refine_counts}
+    per_path = {
+        "grid_sample_fwd": (launches, step_counts[0],
+                            {k: v[0] for k, v in refine_counts.items()}),
+        "grid_sample_bwd_coords": (0, step_counts[1], no_refine),
+        "grid_sample_bwd_img": (0, step_counts[2], no_refine),
+        "grid_sample_with_grads": (0, 0, {k: v[1] for k, v in
+                                          refine_counts.items()})}
     kernels = []
     for name, source, replaces, row in (
-            ("grid_sample_fwd", "tcsfm_torch/ops/csrc/grid_sample.cu",
-             "tcsfm/ops/warp_mxu.py:470", rows[3]),
+            ("grid_sample_fwd", fwd_src, "tcsfm/ops/warp_mxu.py:470",
+             rows[3]),
             ("grid_sample_bwd_coords", bwd_src,
              "tcsfm/ops/warp_mxu_grad.py:303", rows["grid_sample_bwd_coords"]),
             ("grid_sample_bwd_img", bwd_src,
-             "tcsfm/ops/warp_mxu_grad.py:294", rows["grid_sample_bwd_img"])):
-        fwd, step = per_path[name]
+             "tcsfm/ops/warp_mxu_grad.py:294", rows["grid_sample_bwd_img"]),
+            ("grid_sample_with_grads", fwd_src, "tcsfm/ops/warp_mxu.py:526",
+             grads_rows[RB])):
+        fwd, step, refine = per_path[name]
         kernels.append(dict(name=name, route="cuda", source=source,
-                            replaces=replaces, launches=fwd + step,
+                            replaces=replaces,
+                            launches=fwd + step + sum(refine.values()),
                             launches_per_forward=fwd,
-                            launches_per_train_step=step, **row))
+                            launches_per_train_step=step,
+                            launches_per_refiner_call=refine, **row))
     print(json.dumps({"kernels": kernels}), flush=True)
     faulthandler.cancel_dump_traceback_later()
     print(json.dumps({"ok": True, "device": {

@@ -24,24 +24,23 @@ from tcsfm_torch.models.depth import DepthNet
 from tcsfm_torch.models.pose import PoseNet
 from tcsfm_torch.ops.grid_sample import grid_sample
 from tcsfm_torch.solver.coupled import solve_disp, solve_pose_iteratively
-from tcsfm_torch.utils.helpers import disp_to_depth
+from tcsfm_torch.utils.helpers import disp_to_depth, resolve_device
 
 
-def _resolve_device(device=None) -> torch.device:
-    """``None`` means the card; a CUDA device with no card present raises."""
-    device = torch.device("cuda" if device is None else device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("no CUDA device is available; pass device='cpu' "
-                           "to run the port on the CPU")
-    return device
+# std of a standard normal truncated to [-2, 2] (Flax's truncated_normal)
+_TRUNC_STD = 0.87962566103423978
 
 
 @torch.no_grad()
 def _init_weights(model: nn.Module, generator: torch.Generator,
                   uniform: bool) -> None:
-    """Seeded random weights: He-normal (fan-out) for the depth net's convs
-    or Xavier-uniform for the pose net's, as the JAX package initialises
-    them; zero biases; unit norm scales."""
+    """Seeded random weights in the JAX package's distributions
+    (``tcsfm/models/layers.py:23``): the depth net's convs from
+    ``kaiming_out``, Flax's ``variance_scaling(2.0, "fan_out",
+    "truncated_normal")`` (a normal of std sigma / 0.87962566 cut at two
+    of that std, sigma^2 = 2 / fan_out, so the kept weights have std
+    sigma); the pose net's from Xavier-uniform; zero biases; unit norm
+    scales. The numbers drawn differ from JAX's: the generators differ."""
     for m in model.modules():
         if isinstance(m, nn.Conv2d):
             o, i, kh, kw = m.weight.shape
@@ -49,8 +48,10 @@ def _init_weights(model: nn.Module, generator: torch.Generator,
                 bound = math.sqrt(6.0 / ((i + o) * kh * kw))
                 w = (torch.rand(m.weight.shape, generator=generator) * 2 - 1) * bound
             else:
-                w = torch.randn(m.weight.shape, generator=generator)
-                w = w * math.sqrt(2.0 / (o * kh * kw))
+                std = math.sqrt(2.0 / (o * kh * kw)) / _TRUNC_STD
+                w = nn.init.trunc_normal_(torch.empty(m.weight.shape), std=std,
+                                          a=-2.0 * std, b=2.0 * std,
+                                          generator=generator)
             m.weight.copy_(w)
             if m.bias is not None:
                 m.bias.zero_()
@@ -65,7 +66,7 @@ def build_models(cfg: Config, device=None,
     """(depth_net, pose_net) in eval mode on ``device``, with seeded random
     weights drawn from ``generator`` (a CPU generator; seed 0 if None).
     Load trained weights with ``load_state_dict`` (see ``models.convert``)."""
-    device = _resolve_device(device)
+    device = resolve_device(device)
     if generator is None:
         generator = torch.Generator().manual_seed(0)
     depth_net = DepthNet(num_scales=cfg.num_scales)
@@ -91,7 +92,7 @@ def coupled_forward(depth_net: DepthNet, pose_net: PoseNet, target_img,
       poses [S, B, 6], poses_inv [S, B, 6], the target's disparity
       [B, H, W, 1] and the pose chain [2SB, cfg.iterations, 6].
     """
-    device = _resolve_device(device)
+    device = resolve_device(device)
     for net in (depth_net, pose_net):
         p = next(net.parameters()).device
         if p.type != device.type:

@@ -2,7 +2,9 @@
 
 Every source under ``csrc/`` has a plain C interface (no PyTorch headers),
 so one ``nvcc`` call compiles all ``*.cu`` (which include the ``*.cuh``
-headers beside them) into a shared library in seconds.
+headers beside them) into a shared library in seconds. The library links
+nvcc's static CUDA runtime; each entry point takes the index of its
+tensors' card and makes it current for its launch (``csrc/launch.cuh``).
 PyTorch's own extension builder is not used: a source that includes
 PyTorch's headers takes minutes to compile, it needs ``ninja``, and it can
 wait forever on a stale lock file.
@@ -98,13 +100,17 @@ def load() -> ctypes.CDLL:
     if _lib is None:
         lib = ctypes.CDLL(str(build()))
         p, i, u = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint
-        lib.tcsfm_grid_sample_fwd.argtypes = [p, p, p, i, i, i, i, p]
+        # (pointers..., B, H, W, C[, Cg], device index, stream)
+        lib.tcsfm_grid_sample_fwd.argtypes = [p, p, p, i, i, i, i, i, p]
         lib.tcsfm_grid_sample_fwd.restype = i
+        lib.tcsfm_grid_sample_fwd_grads.argtypes = [p, p, p, p, p,
+                                                    i, i, i, i, i, p]
+        lib.tcsfm_grid_sample_fwd_grads.restype = i
         lib.tcsfm_grid_sample_bwd_coords.argtypes = [p, p, p, p,
-                                                     i, i, i, i, p]
+                                                     i, i, i, i, i, p]
         lib.tcsfm_grid_sample_bwd_coords.restype = i
         lib.tcsfm_grid_sample_bwd.argtypes = [p, p, p, p, p, u,
-                                              i, i, i, i, i, p]
+                                              i, i, i, i, i, i, p]
         lib.tcsfm_grid_sample_bwd.restype = i
         _lib = lib
     return _lib

@@ -46,13 +46,15 @@
 // writes a gradient for data channels.
 //
 // C interface for ctypes: no PyTorch headers. Launches on the caller's
-// stream, allocates nothing (d_img arrives zeroed), does not synchronise;
-// returns cudaGetLastError() of the launch.
+// stream on the given device (launch.cuh), allocates nothing (d_img
+// arrives zeroed), does not synchronise; returns cudaGetLastError() of the
+// launch.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include "bilinear.cuh"
+#include "launch.cuh"
 
 namespace {
 
@@ -119,9 +121,11 @@ grid_sample_bwd_kernel(const float* __restrict__ img,
 template <bool kImg>
 int launch(const float* img, const float* coords, const float* g,
            float* d_coords, float* d_img, unsigned grad_mask, int B, int H,
-           int W, int C, int Cg, void* stream) {
+           int W, int C, int Cg, int device, void* stream) {
   const int64_t pixels = (int64_t)B * H * W;
   if (pixels == 0) return (int)cudaSuccess;
+  DeviceScope scope(device);
+  if (scope.status() != cudaSuccess) return (int)scope.status();
   const unsigned blocks = (unsigned)((pixels + kThreads - 1) / kThreads);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (C) {
@@ -152,9 +156,9 @@ extern "C" int tcsfm_grid_sample_bwd_coords(const float* img,
                                             const float* coords,
                                             const float* g, float* d_coords,
                                             int B, int H, int W, int C,
-                                            void* stream) {
+                                            int device, void* stream) {
   return launch<false>(img, coords, g, d_coords, nullptr, 0u, B, H, W, C, 0,
-                       stream);
+                       device, stream);
 }
 
 // d_coords [B,H,W,2] and d_img [B,H,W,Cg] (zeroed by the caller) for the
@@ -163,7 +167,7 @@ extern "C" int tcsfm_grid_sample_bwd(const float* img, const float* coords,
                                      const float* g, float* d_coords,
                                      float* d_img, unsigned grad_mask, int B,
                                      int H, int W, int C, int Cg,
-                                     void* stream) {
+                                     int device, void* stream) {
   return launch<true>(img, coords, g, d_coords, d_img, grad_mask, B, H, W, C,
-                      Cg, stream);
+                      Cg, device, stream);
 }

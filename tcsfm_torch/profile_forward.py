@@ -1,7 +1,8 @@
-"""Where the coupled forward's, or the training step's, time goes on the
-card.
+"""Where the coupled forward's, the training step's, or a refiner's time
+goes on the card.
 
-    python -m tcsfm_torch.profile_forward [--iters 5] [--tf32] [--train]
+    python -m tcsfm_torch.profile_forward [--iters 5] [--tf32]
+        [--train | --refiners]
 
 Runs the main path (med res 192x640, B=6, S=2, 4 iterations, f32, seeded
 random weights) and prints: the forward's median wall time, the device
@@ -20,6 +21,17 @@ backward), the loss stack forward+backward with its own warp (1 forward,
 1 d_img backward), the optimizer update, and the rest (the step minus the
 pieces: the solver's and the warps' glue, the backward of the packing);
 then the profiler's top kernels of the step.
+
+``--refiners`` splits one Levenberg-Marquardt iteration of ``window_ba``
+at the refiners' window batch (4 windows at 192x640, f32, TF32 off): the
+iteration's time on the card's timeline is that of ``window_ba(iters=10)``
+less that of ``window_ba(iters=0)``, over 10 (CUDA events); its kernel
+time the same difference from the profiler, by kind of kernel: the
+sampler kernels (4 value and 14 value+Jacobian launches an iteration),
+the matmuls (the einsum reductions and the geometry's 3x3 products), the
+LU solves, and the rest (elementwise, copies, reductions); the share of
+the timeline that kernels fill; then the profiler's top kernels of one
+``window_ba(iters=10)`` call.
 Needs the card.
 """
 
@@ -156,12 +168,85 @@ def train_split(args) -> None:
     _top_kernels(lambda: train_step(state, batch), args.iters, "step")
 
 
+_REFINER_KINDS = (  # kernel-name patterns of the pieces of an LM iteration
+    ("sampler kernels (value, value+Jacobian)", ("grid_sample",)),
+    ("matmuls: einsum reductions, 3x3 geometry", ("gemm", "gemv", "Gemv")),
+    ("solves (LU)", ("getr", "trsm", "laswp", "lu_", "pivot")),
+)
+
+
+def _kernel_ms_by_kind(run) -> dict:
+    """Device ms of one ``run()`` by kind of kernel, from the profiler."""
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        run()
+        torch.cuda.synchronize()
+    out = {k: 0.0 for k, _ in _REFINER_KINDS}
+    out["rest: elementwise, copies, reductions"] = 0.0
+    for e in prof.key_averages():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        kind = next((k for k, pats in _REFINER_KINDS
+                     if any(p in e.key for p in pats)),
+                    "rest: elementwise, copies, reductions")
+        out[kind] += _device_us(e) / 1e3
+    return out
+
+
+def refiners_split(args) -> None:
+    """One LM iteration of window_ba: its time on the card's timeline, and
+    its kernel time by kind."""
+    import torch.nn.functional as F
+
+    from tcsfm_torch.solver.ba import window_ba
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    b, (h, w) = 4, Config().image_size
+    rng = np.random.RandomState(0)
+
+    def smooth(n):
+        lo = torch.from_numpy(rng.rand(n, 3, 9, 13).astype(np.float32))
+        up = F.interpolate(lo, size=(h, w), mode="bilinear",
+                           align_corners=True)
+        return up.permute(0, 2, 3, 1).contiguous().cuda()
+
+    tgt, prv, nxt = smooth(b), smooth(b), smooth(b)
+    depth = torch.from_numpy((2.0 + 3.0 * rng.rand(b, h, w, 1))
+                             .astype(np.float32)).cuda()
+    pa, pb = (torch.from_numpy((0.01 * rng.randn(b, 6)).astype(np.float32))
+              .cuda() for _ in range(2))
+    K = torch.tensor([[0.6 * w, 0, w / 2], [0, 0.6 * w, h / 2.5], [0, 0, 1]],
+                     device="cuda").expand(b, 3, 3).contiguous()
+
+    def call(iters):
+        return lambda: window_ba(pa, pb, depth, tgt, prv, nxt, depth, depth,
+                                 K, iters=iters, depth_prior_weight=0.1)
+
+    ten, zero = (_median_event_ms(call(n), args.iters) for n in (10, 0))
+    iteration = (ten - zero) / 10
+    kinds = {k: (a - z) / 10 for (k, a), z in zip(
+        _kernel_ms_by_kind(call(10)).items(),
+        _kernel_ms_by_kind(call(0)).values())}
+    busy = sum(kinds.values())
+    print(f"{torch.cuda.get_device_name(0)}; window_ba {b}x{h}x{w}, TF32 "
+          f"off: iters=10 {ten:.3f} ms, iters=0 {zero:.3f} ms (first cost, "
+          f"final blocks), CUDA events -> one LM iteration {iteration:.3f} ms "
+          f"on the card's timeline; {ten / b:.3f} ms per window for the call")
+    print(f"kernel time of one LM iteration by kind (profiler, iters=10 less "
+          f"iters=0, over 10): {busy:.3f} ms = {busy / iteration:.1%} of the "
+          f"timeline (the rest of it the card waits for the host)")
+    for k, t in kinds.items():
+        print(f"  {k:<44} {t:9.3f}  {t / busy:6.1%}")
+    _top_kernels(call(10), 1, "window_ba call")
+
+
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--iters", type=int, default=5)
     ap.add_argument("--tf32", action="store_true")
     ap.add_argument("--train", action="store_true",
                     help="split the training step instead of the forward")
+    ap.add_argument("--refiners", action="store_true",
+                    help="split one LM iteration of window_ba instead")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile_forward needs an NVIDIA card")
@@ -169,6 +254,9 @@ def main(argv=None) -> None:
     torch.backends.cuda.matmul.allow_tf32 = False
     if args.train:
         train_split(args)
+        return
+    if args.refiners:
+        refiners_split(args)
         return
 
     cfg = Config(iterations=4, minibatch=6)

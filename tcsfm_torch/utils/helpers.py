@@ -1,4 +1,5 @@
-"""Disparity/depth conversion (counterpart of ``tcsfm/utils/helpers.py:12-27``)."""
+"""Disparity/depth conversion (counterpart of ``tcsfm/utils/helpers.py:12-27``),
+and the device rule of the port's entry points."""
 
 from __future__ import annotations
 
@@ -21,3 +22,12 @@ def depth_to_disp(depth: torch.Tensor, min_depth: float, max_depth: float):
     min_disp = 1.0 / max_depth
     max_disp = 1.0 / min_depth
     return (1.0 / depth - min_disp) / (max_disp - min_disp)
+
+
+def resolve_device(device=None) -> torch.device:
+    """``None`` means the card; a CUDA device with no card present raises."""
+    device = torch.device("cuda" if device is None else device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device is available; pass device='cpu' "
+                           "to run the port on the CPU")
+    return device

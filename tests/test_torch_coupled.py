@@ -265,6 +265,34 @@ def test_build_models_is_seeded():
             assert ka == kb and torch.equal(va, vb)
 
 
+def test_depth_net_init_is_flax_truncated_normal():
+    """The depth net's convs follow the JAX package's ``kaiming_out``:
+    Flax's ``variance_scaling(2.0, "fan_out", "truncated_normal")``, a
+    normal of std sigma / 0.87962566 cut at two of that std (sigma^2 =
+    2 / fan_out). Every weight lies inside the cut, the std is sigma within
+    3% (tensors of >= 4096 weights), and the largest weight is where Flax's
+    own draw of the same shape puts it (both ~2.27 sigma)."""
+    from tcsfm.models.layers import kaiming_out
+
+    depth_net, _ = infer.build_models(
+        Config(), device="cpu", generator=torch.Generator().manual_seed(0))
+    convs = [m.weight for m in depth_net.modules()
+             if isinstance(m, torch.nn.Conv2d)]
+    assert len(convs) > 20
+    cut = 2.0 / 0.87962566103423978
+    for w in convs:
+        o, i, kh, kw = w.shape
+        sigma = (2.0 / (o * kh * kw)) ** 0.5
+        assert w.abs().max().item() <= cut * sigma * (1 + 1e-6)
+        if w.numel() >= 4096:
+            assert abs(w.std().item() / sigma - 1) < 0.03
+    w = convs[1]                                      # a 3x3 64->64 conv
+    o, i, kh, kw = w.shape
+    sigma = (2.0 / (o * kh * kw)) ** 0.5
+    flax = np.asarray(kaiming_out(jax.random.PRNGKey(0), (kh, kw, i, o)))
+    assert abs(w.abs().max().item() - np.abs(flax).max()) < 0.02 * sigma
+
+
 def test_config_reads_jax_config_json():
     jcfg = JaxConfig(iterations=3, num_scales=2, min_depth=0.1,
                      img_resolution="low")

@@ -1,5 +1,5 @@
 """The port's CUDA kernels against their plain versions, and the training
-step through them, on the card.
+step and the refiners through them, on the card.
 
 Marked ``cuda``: each test asks the ``cuda`` fixture, which skips where
 there is no card. This file imports no JAX, so it also runs where JAX is
@@ -7,10 +7,12 @@ not installed:
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py -q
 
-Tolerances: forward atol 1e-5 and backward d_coords 1e-6 of its largest
-magnitude (each kernel repeats its plain version's f32 arithmetic in the
-same order; the forward has measured bit-equal on an H100); d_img 1e-5
-(atomics add in an order that changes from run to run).
+Tolerances: forward atol 1e-5, value+Jacobian gx/gy and backward d_coords
+1e-6 of their largest magnitude (each kernel repeats its plain version's
+f32 arithmetic in the same order; the forward kernels have measured
+bit-equal on an H100); d_img 1e-5 (atomics add in an order that changes
+from run to run); a refiner with the kernels vs the plain sampler: poses
+1e-5, costs 1e-6 relative (the jvps' products run in another order).
 """
 
 import copy
@@ -153,3 +155,73 @@ def test_coupled_forward_on_card(cuda):
     for a, b in zip(out, plain):
         assert a.is_cuda and torch.isfinite(a).all()
         assert (a - b).abs().max().item() <= 1e-5
+
+
+@pytest.mark.parametrize("shape", [(2, 31, 45, 1), (2, 32, 64, 3),
+                                   (3, 17, 23, 4), (1, 8, 9, 7),
+                                   (4, 192, 640, 3)])
+def test_with_grads_kernel_matches_plain(cuda, shape):
+    img, coords = _inputs(shape, 7, cuda)
+    before = gs.LAUNCHES_FWD_GRADS
+    got = gs.grid_sample_with_grads(img, coords)
+    torch.cuda.synchronize()
+    assert gs.LAUNCHES_FWD_GRADS == before + 1
+    ref = gs.grid_sample_with_grads_plain(img, coords)
+    assert (got[0] - ref[0]).abs().max().item() <= 1e-5
+    for a, r in zip(got[1:], ref[1:]):
+        assert a.shape == img.shape
+        assert (a - r).abs().max().item() <= 1e-6 * r.abs().max().item()
+
+
+def test_forward_mode_on_the_card(cuda):
+    """torch.func.jvp through grid_sample_fwd_diff: one value+Jacobian
+    launch and no other; through grid_sample: its forward and one
+    value+Jacobian launch; vmap and grad as on the CPU."""
+    img, coords = _inputs((2, 16, 24, 3), 8, cuda)
+    tangent = torch.randn(coords.shape, generator=torch.Generator()
+                          .manual_seed(9)).to(cuda)
+    _, ref = torch.func.jvp(lambda c: gs.grid_sample_plain(img, c),
+                            (coords,), (tangent,))
+    for fn, launches in ((gs.grid_sample_fwd_diff, (0, 1)),
+                         (gs.grid_sample, (1, 1))):
+        before = (gs.LAUNCHES, gs.LAUNCHES_FWD_GRADS)
+        _, tan = torch.func.jvp(lambda c: fn(img, c), (coords,), (tangent,))
+        torch.cuda.synchronize()
+        assert (gs.LAUNCHES - before[0],
+                gs.LAUNCHES_FWD_GRADS - before[1]) == launches
+        assert (tan - ref).abs().max().item() <= 1e-5 * ref.abs().max().item()
+    many = coords[None] * torch.tensor([1.0, 0.9], device=cuda)[
+        :, None, None, None, None]
+    out = torch.func.vmap(gs.grid_sample, in_dims=(None, 0))(img, many)
+    assert torch.equal(out, torch.stack([gs.grid_sample_plain(img, c)
+                                         for c in many]))
+    grad = torch.func.grad(lambda c: gs.grid_sample(img, c).sum())(coords)
+    ref = torch.func.grad(lambda c: gs.grid_sample_plain(img, c).sum())(
+        coords)
+    assert (grad - ref).abs().max().item() <= 1e-5 * ref.abs().max().item()
+
+
+def test_window_ba_on_card(cuda):
+    """window_ba with the kernels and with the plain sampler on the same
+    small smooth scene: 44 value and 154 value+Jacobian launches at 10
+    iterations, the same poses and costs, and the cost falls."""
+    import chip_smoke
+    from tcsfm_torch.solver.ba import window_ba
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    tgt, src, K = chip_smoke.smooth_inputs(torch, 2, 2, 64, 96, seed=3)
+    rng = np.random.RandomState(3)
+    depth = (2.0 + 3.0 * rng.rand(2, 64, 96, 1)).astype(np.float32)
+    pose = (0.01 * rng.randn(2, 2, 6)).astype(np.float32)
+    args = (pose[0], pose[1], depth, tgt, src[0], src[1], depth, depth, K)
+    before = (gs.LAUNCHES, gs.LAUNCHES_FWD_GRADS)
+    res = window_ba(*args, iters=10, depth_prior_weight=0.1)
+    torch.cuda.synchronize()
+    assert (gs.LAUNCHES - before[0],
+            gs.LAUNCHES_FWD_GRADS - before[1]) == (44, 154)
+    ref = window_ba(*args, iters=10, depth_prior_weight=0.1,
+                    sampler=gs.grid_sample_plain)
+    assert res.pose_prev.is_cuda and bool((res.cost[-1] < res.cost[0]).all())
+    for k in ("pose_prev", "pose_next"):
+        assert (getattr(res, k) - getattr(ref, k)).abs().max().item() <= 1e-5
+    assert ((res.cost - ref.cost).abs() / ref.cost).max().item() <= 1e-6

@@ -140,3 +140,42 @@ def test_plain_is_differentiable():
     coords = torch.from_numpy(_coords("smooth")).requires_grad_(True)
     gs.grid_sample_plain(img, coords).sum().backward()
     assert torch.isfinite(img.grad).all() and torch.isfinite(coords.grad).all()
+
+
+class _OnCard(torch.Tensor):
+    """A CPU tensor that reports itself on the fourth card, so that the
+    wrappers take their CUDA path into a stub library."""
+
+    @property
+    def device(self):
+        return torch.device("cuda", 3)
+
+
+def test_launches_pass_the_tensors_card(monkeypatch):
+    """Every C entry point receives the index of its tensors' card (the
+    library makes that card current for its launch), so the kernels run
+    on any card, not on the first one only."""
+    calls = {}
+
+    class StubLib:
+        def __getattr__(self, name):
+            def entry(*args):
+                calls[name] = args
+                return 0
+            return entry
+
+    monkeypatch.setattr(gs._build, "load", lambda: StubLib())
+    monkeypatch.setattr(gs, "_stream", lambda device: 1234)
+    img = torch.from_numpy(_img(8)).as_subclass(_OnCard)
+    coords = torch.from_numpy(_coords("smooth")).as_subclass(_OnCard)
+    g = torch.ones(B, H, W, C).as_subclass(_OnCard)
+    gs.grid_sample_with_grads(img, coords)
+    gs._launch_fwd(img, coords)
+    gs.grid_sample_bwd(img, coords, g)
+    gs.grid_sample_bwd(img, coords, g, (3,))
+    assert sorted(calls) == ["tcsfm_grid_sample_bwd",
+                             "tcsfm_grid_sample_bwd_coords",
+                             "tcsfm_grid_sample_fwd",
+                             "tcsfm_grid_sample_fwd_grads"]
+    for name, args in calls.items():
+        assert args[-2:] == (3, 1234), (name, args[-2:])
