@@ -27,11 +27,17 @@ Phases, each printing its elapsed seconds:
      with a 2-level pyramid; launch counts, falling costs, the same calls
      with the plain sampler, ms per window and peak memory;
   8. ``window_ba`` and ``gauss_newton_pose`` on the card and on the CPU at
-     a small input.
+     a small input;
+  9. the fourth main path: the coupled forward of phase 3 with its depth
+     net through the fused decoder tail (``make_tail_apply``): launch
+     counts, the disparity against the default route at the raw init
+     (and both routes against a float64 tail), the pose chain against the
+     default route under trained-like conditioning, frames/s of both
+     routes in turns, and peak memory.
 
 Phase 2 also holds the sampler's two backward kernels (d_coords only,
-and d_coords + d_img) and its value+Jacobian kernel against their plain
-versions.
+and d_coords + d_img), its value+Jacobian kernel and the decoder tail
+kernel against their plain versions.
 Prints the kernels' JSON line, then, as the last line,
 ``{"ok": true, "device": {...}}``. Any failed check raises and exits
 non-zero; a hang past the watchdog dumps a traceback and exits non-zero.
@@ -79,6 +85,30 @@ REFINER_LAUNCHES = {"ba": (44, 154), "gn": (21, 60), "chain": (102, 336)}
 CHAIN_TOL = 1e-5              # kernel- vs plain-sampler forward, pose chain
 DISP_TOL = 1e-6               # the two forwards run identical convs
 CPU_TOL = 1e-5                # card vs CPU: other conv algorithms and orders
+TAIL_TOL = 1e-5               # tail kernel vs plain, on the sigmoid output:
+# the same f32 convs summed in another order
+# the disparity of the tail route vs the default (cuDNN) route: at the raw
+# init f32 resolves the disparity only to ~2e-4 (ROADMAP §3; the tail alone
+# is 3.3e-5 from float64 at 96x160 on the CPU), so 5e-4, the raw-init bound
+# of tests/test_torch_models.py; under trained-like conditioning 1e-5
+TAIL_DISP_TOL_RAW = 5e-4
+TAIL_DISP_TOL = 1e-5
+# the pose chain, trained-like, tail vs default route: 1e-5 at 64x96, where
+# f32 resolves the solver (card vs CPU 2e-7 there). At 192x640 it does not:
+# phase "tail" runs five smooth inputs through both routes and through the
+# route whose tail is float64; where a pixel crosses the valid mask's
+# border, either f32 route's chain leaves the float64 one by up to ~2e-4
+# at iterations 1-4, so there 1e-3, and the disparity carries the 1e-5
+# check
+TAIL_POSE_TOL = 1e-5
+TAIL_POSE_TOL_FULL = 1e-3
+TAIL_SEEDS = (0, 1, 2, 3, 4)  # the smooth inputs of that comparison
+TAIL_SHAPES = ((18, 32, H, W), (2, 32, 190, 638))
+TAIL_TIMED = 15               # forwards of each route, in turns
+# the tail kernel's multiply-adds per output pixel, and per 16x16 tile as
+# it runs them (conv1 on the tile +-2, conv2 +-1, conv3 on the tile)
+TAIL_MACS = 9 * 32 * 32 + 9 * 32 * 8 + 9 * 8
+TAIL_TILE_MACS = 20 * 20 * 9 * 32 * 32 + 18 * 18 * 9 * 32 * 8 + 16 * 16 * 72
 
 T0 = time.monotonic()
 
@@ -293,6 +323,84 @@ def phase_grads_kernel(torch, gs):
             f"bound {bound_ms * 1e3:.2f} us ({rows[b]['bound_by']}: "
             f"{nbytes / 1e6:.2f} MB), kernel at {bound_ms / ms:.1%} of bound")
     return rows
+
+
+def tail_inputs(torch, shape, seed):
+    """Seeded tail input x (NCHW) and weights drawn as
+    experiments/test_decoder_tail.py draws them."""
+    import numpy as np
+
+    rng = np.random.RandomState(seed)
+    x = torch.from_numpy((rng.randn(*shape) * 0.5).astype(np.float32))
+    ws = [torch.from_numpy(a.astype(np.float32)).cuda() for a in (
+        rng.randn(32, 32, 3, 3) * 0.08, rng.randn(32) * 0.1,
+        rng.randn(8, 32, 3, 3) * 0.08, rng.randn(8) * 0.1,
+        rng.randn(1, 8, 3, 3) * 0.2, rng.randn(1) * 0.1)]
+    return x.cuda(), ws
+
+
+def phase_tail_kernel(torch, dt):
+    """The decoder tail kernel vs decoder_tail_plain at the coupled
+    forward's shape [18,32,192,640] and at an odd shape [2,32,190,638]
+    (tiles on both borders cut short); at the main shape the times of the
+    kernel, the plain version and the default route's cuDNN layer
+    sequence, and the bound."""
+    import math
+
+    from tcsfm_torch.models.layers import ReflConv
+
+    torch.backends.cudnn.allow_tf32 = False
+    for shape in TAIL_SHAPES[::-1]:
+        x, ws = tail_inputs(torch, shape, sum(shape))
+        out = dt.decoder_tail(x, *ws)
+        ref = dt.decoder_tail_plain(x, *ws)
+        torch.cuda.synchronize()
+        err = (out - ref).abs().max().item()
+        check(err <= TAIL_TOL, f"decoder_tail {list(shape)}: kernel vs plain "
+              f"max abs err {err} > {TAIL_TOL}")
+        if shape != TAIL_SHAPES[0]:
+            say("kernels", f"decoder_tail {list(shape)}: max|kernel-plain| "
+                f"{err:.3e} (limit {TAIL_TOL})")
+    # x, ws, out and err are the main shape's. The default route's own
+    # layers: ELU, then iconv4, the feature conv and the head as the depth
+    # net holds them
+    seq = torch.nn.Sequential(
+        torch.nn.ELU(), ReflConv(32, 32), torch.nn.ELU(), ReflConv(32, 8),
+        torch.nn.ELU(), ReflConv(8, 1), torch.nn.Sigmoid()).cuda()
+    for conv, wt, bias in zip(seq[1::2], ws[0::2], ws[1::2]):
+        conv.conv.weight.data.copy_(wt)
+        conv.conv.bias.data.copy_(bias)
+
+    def sequence():
+        with torch.no_grad():
+            return seq(x).permute(0, 2, 3, 1)
+
+    seq_err = (sequence() - out).abs().max().item()
+    ms = time_ms(lambda: dt.decoder_tail(x, *ws), iters=20)
+    plain_ms = time_ms(lambda: dt.decoder_tail_plain(x, *ws), iters=20)
+    seq_ms = time_ms(sequence, iters=20)
+    n, _, h, w = x.shape
+    tiles = n * math.ceil(h / 16) * math.ceil(w / 16)
+    halo = tiles * TAIL_TILE_MACS / (n * h * w * TAIL_MACS)
+    nbytes = (x.numel() + out.numel() + sum(t.numel() for t in ws)) * 4
+    flops = 2 * TAIL_MACS * n * h * w
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = flops / F32_FLOPS_PER_S * 1e3
+    bound_ms = max(bytes_ms, ops_ms)
+    row = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+               bound_by="bytes" if bytes_ms >= ops_ms else "operations",
+               library_ms=None, library_sequence_ms=seq_ms,
+               halo_mac_ratio=halo)
+    say("kernels", f"decoder_tail {list(x.shape)}: max|kernel-plain| "
+        f"{err:.3e} (limit {TAIL_TOL}), max|kernel-cuDNN layers| "
+        f"{seq_err:.3e}; kernel {ms * 1e3:.2f} us, plain "
+        f"{plain_ms * 1e3:.2f} us, the default route's cuDNN layer sequence "
+        f"(3 F.pad + F.conv2d, ELU, sigmoid; no single library call) "
+        f"{seq_ms * 1e3:.2f} us; bound {bound_ms * 1e3:.2f} us "
+        f"({row['bound_by']}: {flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.2f} "
+        f"MB), kernel at {bound_ms / ms:.1%} of bound; executed "
+        f"multiply-adds {halo:.3f}x the output's (halo recompute)")
+    return row
 
 
 def smoke_inputs(b, s, h, w, seed):
@@ -809,6 +917,156 @@ def phase_refiners_reference(torch, gs):
             for k, (p, c) in worst.items()) + f" (limit {CPU_TOL})")
 
 
+def phase_tail(torch, gs, dt, cfg, build_models, coupled_forward):
+    """The coupled forward of phase "slice" with its depth net through the
+    fused decoder tail: launch counts; the disparity against the default
+    route at the raw init, and each route's tail against a float64 tail of
+    the same input; under trained-like conditioning, at 64x96 and at
+    192x640, the disparity and the pose chain against the default route
+    and against the route with a float64 tail; both routes timed in turns;
+    peak memory.
+    Returns (tail launches, sampler launches) of one forward."""
+    import copy
+
+    from tcsfm_torch.models.depth import make_tail_apply, tail_weights
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    depth_net, pose_net = build_models(
+        cfg, device="cuda", generator=torch.Generator().manual_seed(0))
+    tgt, src, K = (torch.from_numpy(a).cuda()
+                   for a in smoke_inputs(B, S, H, W, seed=0))
+    tail = make_tail_apply(depth_net)
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts(gs)
+    dt.LAUNCHES = 0
+    poses, poses_inv, disp, chain = coupled_forward(
+        depth_net, pose_net, tgt, src, K, cfg, depth_apply=tail)
+    torch.cuda.synchronize()
+    counts = (dt.LAUNCHES, *read_counts(gs))
+    peak_tail = torch.cuda.max_memory_allocated() / 2**20
+    check(counts == (1, ITERS - 1, 0, 0), f"tail route: launches (tail, "
+          f"grid_sample fwd, bwd_coords, bwd_img) {counts} in one forward, "
+          f"expected {(1, ITERS - 1, 0, 0)}")
+    shapes = {"poses": (S, B, 6), "poses_inv": (S, B, 6),
+              "disp": (B, H, W, 1), "chain": (2 * S * B, ITERS, 6)}
+    for name, t in zip(shapes, (poses, poses_inv, disp, chain)):
+        check(tuple(t.shape) == shapes[name],
+              f"tail route: {name} shape {tuple(t.shape)} != {shapes[name]}")
+        check(bool(torch.isfinite(t).all()), f"tail route: {name} has "
+              f"non-finite values")
+    say("tail", f"main path: launches (tail, grid_sample fwd, bwd_coords, "
+        f"bwd_img) {counts} in one coupled forward through make_tail_apply "
+        f"(expected {(1, ITERS - 1, 0, 0)}); outputs finite, shapes "
+        f"{list(shapes.values())}")
+
+    torch.cuda.reset_peak_memory_stats()
+    _, _, disp_d, _ = coupled_forward(depth_net, pose_net, tgt, src, K, cfg)
+    torch.cuda.synchronize()
+    peak_default = torch.cuda.max_memory_allocated() / 2**20
+    raw_err = (disp - disp_d).abs().max().item()
+    check(raw_err <= TAIL_DISP_TOL_RAW, f"tail vs default route at the raw "
+          f"init: disparity {raw_err} > {TAIL_DISP_TOL_RAW}")
+    with torch.no_grad():
+        imgs = torch.cat([tgt, src.reshape(S * B, H, W, 3)])
+        z = depth_net.decode_tail_input(depth_net.encode(imgs))
+        w = tail_weights(depth_net)
+        d64 = dt.decoder_tail_plain(z.double(), *(t.double() for t in w))
+        k64 = (dt.decoder_tail(z, *w).double() - d64).abs().max().item()
+        c64 = (dt.decoder_tail_plain(z, *w).double() - d64).abs().max().item()
+    del z, d64
+    say("tail", f"raw init: max|disp tail - default route| {raw_err:.3e} "
+        f"(limit {TAIL_DISP_TOL_RAW}); the tail of the same input "
+        f"[{(S + 1) * B},32,{H},{W}] against a float64 tail: kernel "
+        f"{k64:.3e}, "
+        f"cuDNN f32 {c64:.3e}")
+
+    cond = copy.deepcopy(depth_net)
+    condition_like_trained(cond, torch)
+    w64 = [t.double() for t in tail_weights(cond)]
+
+    def f64_tail(imgs):
+        z = cond.decode_tail_input(cond.encode(imgs))
+        return [dt.decoder_tail_plain(z.double(), *w64).float()]
+
+    def iters(errs):
+        return "[" + ", ".join(f"{e:.2e}" for e in errs) + "]"
+
+    unresolved = {"tail": [], "default": []}   # full size, past 1e-5
+    for (b, h, w), seed, tol in (
+            ((2, 64, 96), 3, TAIL_POSE_TOL),
+            *(((B, H, W), k, TAIL_POSE_TOL_FULL) for k in TAIL_SEEDS)):
+        sm = [torch.from_numpy(a).cuda()
+              for a in smooth_inputs(torch, b, S, h, w, seed=seed)]
+        out = {k: coupled_forward(cond, pose_net, *sm, cfg, depth_apply=v)
+               for k, v in (("tail", make_tail_apply(cond)), ("default", None),
+                            ("f64", f64_tail))}
+        disp, chain = {}, {}
+        for a, r in (("tail", "default"), ("tail", "f64"),
+                     ("default", "f64")):
+            disp[a, r] = (out[a][2] - out[r][2]).abs().max().item()
+            chain[a, r] = (out[a][3] - out[r][3]).abs().amax(
+                dim=(0, 2)).tolist()
+        check(max(chain["tail", "default"]) <= tol
+              and disp["tail", "default"] <= TAIL_DISP_TOL
+              and disp["tail", "f64"] <= TAIL_DISP_TOL,
+              f"tail route, trained-like, {h}x{w}: chain vs default route "
+              f"per iteration {chain['tail', 'default']} (limit {tol}), disp "
+              f"vs default {disp['tail', 'default']}, vs the float64 tail's "
+              f"route {disp['tail', 'f64']} (limit {TAIL_DISP_TOL})")
+        if h == H:
+            for k in unresolved:
+                e = max(chain[k, "f64"])
+                if e > TAIL_POSE_TOL:
+                    unresolved[k].append(e)
+        say("tail", f"trained-like conditioning, smooth images (seed {seed}),"
+            f" {h}x{w} B={b}: tail vs default route max|disp diff| "
+            f"{disp['tail', 'default']:.2e} (limit {TAIL_DISP_TOL}), "
+            f"max|chain diff| per iteration "
+            f"{iters(chain['tail', 'default'])} (limit {tol}); against the "
+            f"route with a float64 tail: tail route disp "
+            f"{disp['tail', 'f64']:.2e} (limit {TAIL_DISP_TOL}), chain "
+            f"{iters(chain['tail', 'f64'])}; default route disp "
+            f"{disp['default', 'f64']:.2e}, chain "
+            f"{iters(chain['default', 'f64'])}")
+    say("tail", f"{H}x{W}, {len(TAIL_SEEDS)} smooth inputs: the chain leaves "
+        f"the float64-tail route's by more than {TAIL_POSE_TOL} on "
+        f"{len(unresolved['default'])} inputs through the default route "
+        f"(largest {max(unresolved['default'], default=0.0):.2e}) and on "
+        f"{len(unresolved['tail'])} through the tail route (largest "
+        f"{max(unresolved['tail'], default=0.0):.2e})")
+
+    routes = {"default": lambda: coupled_forward(depth_net, pose_net, tgt,
+                                                 src, K, cfg),
+              "tail": lambda: coupled_forward(depth_net, pose_net, tgt, src,
+                                              K, cfg, depth_apply=tail)}
+    for run in routes.values():
+        run()
+        run()
+    times = {k: [] for k in routes}
+    for i in range(TAIL_TIMED):
+        order = ("default", "tail") if i % 2 == 0 else ("tail", "default")
+        for k in order:
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            routes[k]()
+            torch.cuda.synchronize()
+            times[k].append(time.perf_counter() - t)
+    med = {k: statistics.median(v) for k, v in times.items()}
+    say("tail", f"coupled forward {H}x{W} B={B} S={S} iters={ITERS} f32, "
+        f"{TAIL_TIMED} of each route in turns: through the tail median "
+        f"{med['tail'] * 1e3:.3f} ms (min {min(times['tail']) * 1e3:.3f}, "
+        f"max {max(times['tail']) * 1e3:.3f}) -> {B / med['tail']:.2f} "
+        f"frames/s, peak memory {peak_tail:.1f} MiB; default route median "
+        f"{med['default'] * 1e3:.3f} ms (min "
+        f"{min(times['default']) * 1e3:.3f}, max "
+        f"{max(times['default']) * 1e3:.3f}) -> {B / med['default']:.2f} "
+        f"frames/s, peak memory {peak_default:.1f} MiB")
+    return counts[:2]
+
+
 def main() -> int:
     faulthandler.dump_traceback_later(WATCHDOG_S, exit=True)
     import torch
@@ -820,6 +1078,7 @@ def main() -> int:
     from tcsfm_torch.config import Config
     from tcsfm_torch.infer import build_models, coupled_forward
     from tcsfm_torch.ops import _build
+    from tcsfm_torch.ops import decoder_tail as dt
     from tcsfm_torch.ops import grid_sample as gs
     from tcsfm_torch.train.trainer import (create_train_state, forward_loss,
                                            train_step)
@@ -846,6 +1105,7 @@ def main() -> int:
     rows = phase_kernels(torch, gs)
     rows.update(phase_bwd_kernels(torch, gs))
     grads_rows = phase_grads_kernel(torch, gs)
+    tail_row = phase_tail_kernel(torch, dt)
     say("kernels", f"phase took {time.monotonic() - t:.2f} s")
     cfg = Config(iterations=ITERS, num_scales=1, minibatch=B,
                  img_resolution="med")
@@ -870,17 +1130,24 @@ def main() -> int:
     t = time.monotonic()
     phase_refiners_reference(torch, gs)
     say("refiners reference", f"phase took {time.monotonic() - t:.2f} s")
+    t = time.monotonic()
+    tail_launches, tail_fwd_launches = phase_tail(
+        torch, gs, dt, cfg, build_models, coupled_forward)
+    say("tail", f"phase took {time.monotonic() - t:.2f} s")
 
     fwd_src = "tcsfm_torch/ops/csrc/grid_sample.cu"
     bwd_src = "tcsfm_torch/ops/csrc/grid_sample_bwd.cu"
     no_refine = {k: 0 for k in refine_counts}
+    # launches per forward, training step, refiner call, tail-route forward
     per_path = {
         "grid_sample_fwd": (launches, step_counts[0],
-                            {k: v[0] for k, v in refine_counts.items()}),
-        "grid_sample_bwd_coords": (0, step_counts[1], no_refine),
-        "grid_sample_bwd_img": (0, step_counts[2], no_refine),
+                            {k: v[0] for k, v in refine_counts.items()},
+                            tail_fwd_launches),
+        "grid_sample_bwd_coords": (0, step_counts[1], no_refine, 0),
+        "grid_sample_bwd_img": (0, step_counts[2], no_refine, 0),
         "grid_sample_with_grads": (0, 0, {k: v[1] for k, v in
-                                          refine_counts.items()})}
+                                          refine_counts.items()}, 0),
+        "decoder_tail": (0, 0, no_refine, tail_launches)}
     kernels = []
     for name, source, replaces, row in (
             ("grid_sample_fwd", fwd_src, "tcsfm/ops/warp_mxu.py:470",
@@ -890,14 +1157,18 @@ def main() -> int:
             ("grid_sample_bwd_img", bwd_src,
              "tcsfm/ops/warp_mxu_grad.py:294", rows["grid_sample_bwd_img"]),
             ("grid_sample_with_grads", fwd_src, "tcsfm/ops/warp_mxu.py:526",
-             grads_rows[RB])):
-        fwd, step, refine = per_path[name]
+             grads_rows[RB]),
+            ("decoder_tail", "tcsfm_torch/ops/csrc/decoder_tail.cu",
+             "experiments/decoder_tail.py:200", tail_row)):
+        fwd, step, refine, tail_fwd = per_path[name]
         kernels.append(dict(name=name, route="cuda", source=source,
                             replaces=replaces,
-                            launches=fwd + step + sum(refine.values()),
+                            launches=fwd + step + sum(refine.values())
+                            + tail_fwd,
                             launches_per_forward=fwd,
                             launches_per_train_step=step,
-                            launches_per_refiner_call=refine, **row))
+                            launches_per_refiner_call=refine,
+                            launches_per_tail_forward=tail_fwd, **row))
     print(json.dumps({"kernels": kernels}), flush=True)
     faulthandler.cancel_dump_traceback_later()
     print(json.dumps({"ok": True, "device": {

@@ -12,7 +12,7 @@ Both entry points run on the card unless the caller passes
 from __future__ import annotations
 
 import math
-from typing import Optional, Tuple
+from typing import Callable, Optional, Tuple
 
 import numpy as np
 import torch
@@ -79,7 +79,8 @@ def build_models(cfg: Config, device=None,
 @torch.no_grad()
 def coupled_forward(depth_net: DepthNet, pose_net: PoseNet, target_img,
                     source_imgs, K, cfg: Config, device=None,
-                    sampler: Sampler = grid_sample):
+                    sampler: Sampler = grid_sample,
+                    depth_apply: Optional[Callable] = None):
     """The coupled inference forward.
 
     Args:
@@ -87,6 +88,9 @@ def coupled_forward(depth_net: DepthNet, pose_net: PoseNet, target_img,
                    (tensors or arrays; moved to ``device`` as float32).
       sampler:     the warps' sampler: ``grid_sample`` (the CUDA kernel on
                    the card) or ``ops.grid_sample.grid_sample_plain``.
+      depth_apply: images -> [disparity]; None runs ``depth_net`` itself,
+                   ``models.depth.make_tail_apply(depth_net)`` the same net
+                   through the fused decoder tail.
 
     Returns:
       poses [S, B, 6], poses_inv [S, B, 6], the target's disparity
@@ -104,7 +108,8 @@ def coupled_forward(depth_net: DepthNet, pose_net: PoseNet, target_img,
         return x.to(device=device, dtype=torch.float32).contiguous()
 
     target_img, source_imgs, K = map(as_input, (target_img, source_imgs, K))
-    disparities = solve_disp(depth_net, target_img, source_imgs)
+    disparities = solve_disp(depth_net if depth_apply is None else depth_apply,
+                             target_img, source_imgs)
     depths = torch.stack([disp_to_depth(d[0], cfg.min_depth, cfg.max_depth)[1]
                           for d in disparities])
     poses, poses_inv, chain = solve_pose_iteratively(

@@ -14,11 +14,16 @@ the JAX package; the skip features between ``encode`` and ``decode`` are
 NCHW. ``.train()`` is the JAX package's ``train=True``: the encoder's
 BatchNorm normalizes with batch statistics and updates its running ones by
 Flax's rule (``layers.BatchNorm2d``).
+
+``make_tail_apply`` is a second route to the same disparity: the decoder up
+to the last upconv's conv, then the fused full-resolution tail
+(``ops.decoder_tail``, a CUDA kernel on the card) in place of iconv4, the
+feature conv and the head.
 """
 
 from __future__ import annotations
 
-from typing import List, Sequence
+from typing import Callable, List, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -26,6 +31,7 @@ from torch import nn
 
 from tcsfm_torch.models.layers import ReflConv, Upsample2x
 from tcsfm_torch.models.resnet import ResNet18Encoder
+from tcsfm_torch.ops.decoder_tail import decoder_tail
 
 UPCONV_PLANES = (256, 128, 64, 64, 32)
 # channels of the decoder features a head can read, coarse to fine: the
@@ -70,9 +76,9 @@ class DepthNet(nn.Module):
         x = (x.permute(0, 3, 1, 2) - 0.45) / 0.22
         return self.encoder(x)
 
-    def decode(self, skips: Sequence[torch.Tensor]) -> List[torch.Tensor]:
-        """NCHW skip features → sigmoid disparities [B, h_s, w_s, 1], finest
-        scale first."""
+    def _trunk(self, skips: Sequence[torch.Tensor]) -> List[torch.Tensor]:
+        """Decoder stages 0-3: the bottleneck and the outputs of
+        iconv0..iconv3, coarse to fine."""
         out = skips[-1]
         features = []
         for i in range(len(self.iconvs) - 1):
@@ -80,8 +86,13 @@ class DepthNet(nn.Module):
             up = self.depth_upconvs[i](out) + skips[-(i + 2)]
             out = self.iconvs[i](up)
         features.append(out)
-        out = self.iconvs[-1](self.depth_upconvs[-1](out))
-        features.append(out)
+        return features
+
+    def decode(self, skips: Sequence[torch.Tensor]) -> List[torch.Tensor]:
+        """NCHW skip features → sigmoid disparities [B, h_s, w_s, 1], finest
+        scale first."""
+        features = self._trunk(skips)
+        features.append(self.iconvs[-1](self.depth_upconvs[-1](features[-1])))
 
         n = self.num_scales
         feats = [conv(f) for conv, f in zip(self.feature_convs, features[-n:])]
@@ -96,5 +107,36 @@ class DepthNet(nn.Module):
         disps = [head(m) for head, m in zip(self.predict_disps, merged)]
         return [d.permute(0, 2, 3, 1) for d in reversed(disps)]
 
+    def decode_tail_input(self, skips: Sequence[torch.Tensor]) -> torch.Tensor:
+        """Decoder stages 0-3 and the last upconv without its ELU: the input
+        [B, 32, H, W] of the fused tail (``ops.decoder_tail``), which
+        replaces iconv4, the feature conv and the head (counterpart of
+        ``decode_phase_tail``, without its phase layout)."""
+        assert self.num_scales == 1
+        upsample, conv, _elu = self.depth_upconvs[-1]
+        return conv(upsample(self._trunk(skips)[-1]))
+
     def forward(self, x: torch.Tensor) -> List[torch.Tensor]:
         return self.decode(self.encode(x))
+
+
+def tail_weights(depth_net: DepthNet) -> Tuple[torch.Tensor, ...]:
+    """(w1, b1, w2, b2, w3, b3) of the fused tail: the convs of iconv4, the
+    first feature conv and the first head."""
+    convs = (depth_net.iconvs[-1][0].conv, depth_net.feature_convs[0][0].conv,
+             depth_net.predict_disps[0][0].conv)
+    return tuple(t for c in convs for t in (c.weight, c.bias))
+
+
+def make_tail_apply(depth_net: DepthNet) -> Callable[[torch.Tensor],
+                                                     List[torch.Tensor]]:
+    """imgs [N, H, W, 3] -> [disparity [N, H, W, 1]] through the fused tail:
+    ``solve_disp``'s ``depth_apply`` in place of the net itself (the
+    counterpart of ``experiments/decoder_tail.py::make_tail_apply``).
+    num_scales == 1 only."""
+
+    def apply(imgs: torch.Tensor) -> List[torch.Tensor]:
+        z = depth_net.decode_tail_input(depth_net.encode(imgs))
+        return [decoder_tail(z, *tail_weights(depth_net))]
+
+    return apply

@@ -112,5 +112,8 @@ def load() -> ctypes.CDLL:
         lib.tcsfm_grid_sample_bwd.argtypes = [p, p, p, p, p, u,
                                               i, i, i, i, i, i, p]
         lib.tcsfm_grid_sample_bwd.restype = i
+        # (x, w1, b1, w2, b2, w3, b3, out, N, H, W, device index, stream)
+        lib.tcsfm_decoder_tail_fwd.argtypes = [p] * 8 + [i, i, i, i, p]
+        lib.tcsfm_decoder_tail_fwd.restype = i
         _lib = lib
     return _lib

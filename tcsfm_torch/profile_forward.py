@@ -2,15 +2,19 @@
 goes on the card.
 
     python -m tcsfm_torch.profile_forward [--iters 5] [--tf32]
-        [--train | --refiners]
+        [--tail | --train | --refiners]
 
 Runs the main path (med res 192x640, B=6, S=2, 4 iterations, f32, seeded
 random weights) and prints: the forward's median wall time, the device
-time of each layer (depth net, pose net, sampler kernel, the rest) from
-CUDA events, and, from ``torch.profiler``, the device-busy share of the
-profiled window and the top device kernels. ``--tf32`` lets cuDNN
-convolutions run in TF32 (PyTorch's default); without it they run in full
-f32, as ``chip_smoke.py`` runs them.
+time of each layer (the depth net split into its full-resolution tail --
+iconv4, the feature conv and the head, on 18 images at 192x640 -- and the
+rest of it, the pose net, the sampler kernel, the rest) from CUDA events,
+and, from ``torch.profiler``, the device-busy share of the profiled window
+and the top device kernels. ``--tail`` runs the depth net through
+``make_tail_apply``, its tail the fused kernel, where the default route
+runs the net's own cuDNN layers. ``--tf32`` lets cuDNN convolutions run in
+TF32 (PyTorch's default); without it they run in full f32, as
+``chip_smoke.py`` runs them.
 
 ``--train`` splits the training step at the same shape instead: the whole
 step's median device time, and the device time of each piece run alone at
@@ -48,6 +52,8 @@ from torch.profiler import ProfilerActivity, profile
 from tcsfm_torch.config import Config
 from tcsfm_torch.infer import build_models, coupled_forward
 from tcsfm_torch.losses.photometric import compute_losses
+from tcsfm_torch.models.depth import make_tail_apply, tail_weights
+from tcsfm_torch.ops.decoder_tail import decoder_tail
 from tcsfm_torch.ops.grid_sample import grid_sample, grid_sample_bwd
 from tcsfm_torch.train.trainer import create_train_state, train_step
 from tcsfm_torch.solver.coupled import solve_disp, solve_pose_iteratively
@@ -243,6 +249,8 @@ def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--iters", type=int, default=5)
     ap.add_argument("--tf32", action="store_true")
+    ap.add_argument("--tail", action="store_true",
+                    help="the depth net through the fused decoder tail")
     ap.add_argument("--train", action="store_true",
                     help="split the training step instead of the forward")
     ap.add_argument("--refiners", action="store_true",
@@ -271,7 +279,7 @@ def main(argv=None) -> None:
 
     # device time of each layer: CUDA events around every call (the stream
     # is serial, so an event pair spans exactly that layer's kernels)
-    spans = {"depth_net": [], "pose_net": [], "sampler": []}
+    spans = {"depth rest": [], "depth tail": [], "pose_net": [], "sampler": []}
 
     def timed(name, fn):
         def wrapper(*a, **k):
@@ -283,13 +291,30 @@ def main(argv=None) -> None:
             return out
         return wrapper
 
-    depth_apply = timed("depth_net", depth_net)
+    weights = tail_weights(depth_net)
+
+    def layers_tail(z):
+        # the default route's layers after the last upconv's conv
+        x = depth_net.iconvs[-1](torch.nn.functional.elu(z))
+        x = depth_net.predict_disps[0](depth_net.feature_convs[0](x))
+        return x.permute(0, 2, 3, 1)
+
+    trunk = timed("depth rest", lambda imgs: depth_net.decode_tail_input(
+        depth_net.encode(imgs)))
+    tail = timed("depth tail", (lambda z: decoder_tail(z, *weights))
+                 if args.tail else layers_tail)
+
+    def depth_apply(imgs):
+        return [tail(trunk(imgs))]
+
     pose_apply = timed("pose_net", pose_net)
     sampler = timed("sampler", grid_sample)
+    route = make_tail_apply(depth_net) if args.tail else None
 
     def run(instrumented=False):
         if not instrumented:
-            return coupled_forward(depth_net, pose_net, tgt, src, K, cfg)
+            return coupled_forward(depth_net, pose_net, tgt, src, K, cfg,
+                                   depth_apply=route)
         with torch.no_grad():
             disps = solve_disp(depth_apply, tgt, src)
             depths = torch.stack([disp_to_depth(d[0], cfg.min_depth,
@@ -307,9 +332,10 @@ def main(argv=None) -> None:
         torch.cuda.synchronize()
         times.append(time.perf_counter() - t)
     med = statistics.median(times)
-    print(f"{torch.cuda.get_device_name(0)}; TF32 convs {args.tf32}; forward "
-          f"median {med * 1e3:.3f} ms over {len(times)} -> {b / med:.2f} "
-          f"frames/s")
+    print(f"{torch.cuda.get_device_name(0)}; TF32 convs {args.tf32}; depth "
+          f"net tail {'fused kernel' if args.tail else 'cuDNN layers'}; "
+          f"forward median {med * 1e3:.3f} ms over {len(times)} -> "
+          f"{b / med:.2f} frames/s")
 
     total = []
     for _ in range(args.iters):

@@ -12,7 +12,10 @@ Tolerances: forward atol 1e-5, value+Jacobian gx/gy and backward d_coords
 f32 arithmetic in the same order; the forward kernels have measured
 bit-equal on an H100); d_img 1e-5 (atomics add in an order that changes
 from run to run); a refiner with the kernels vs the plain sampler: poses
-1e-5, costs 1e-6 relative (the jvps' products run in another order).
+1e-5, costs 1e-6 relative (the jvps' products run in another order); the
+decoder tail kernel vs its plain version (cuDNN convolutions, TF32 off)
+atol 1e-5 on the sigmoid output (the sums run in another order), its
+gradient (the plain version's autodiff either way) 1e-6 of the largest.
 """
 
 import copy
@@ -23,6 +26,8 @@ import torch
 
 from tcsfm_torch.config import Config
 from tcsfm_torch.infer import build_models, coupled_forward
+from tcsfm_torch.models.depth import make_tail_apply
+from tcsfm_torch.ops import decoder_tail as dt
 from tcsfm_torch.ops import grid_sample as gs
 from tcsfm_torch.train.trainer import create_train_state, train_step
 
@@ -225,3 +230,63 @@ def test_window_ba_on_card(cuda):
     for k in ("pose_prev", "pose_next"):
         assert (getattr(res, k) - getattr(ref, k)).abs().max().item() <= 1e-5
     assert ((res.cost - ref.cost).abs() / ref.cost).max().item() <= 1e-6
+
+
+def _tail_inputs(shape, seed, device):
+    rng = np.random.RandomState(seed)
+    x = torch.from_numpy((rng.randn(*shape) * 0.5).astype(np.float32))
+    ws = [torch.from_numpy(a.astype(np.float32)).to(device) for a in (
+        rng.randn(32, 32, 3, 3) * 0.08, rng.randn(32) * 0.1,
+        rng.randn(8, 32, 3, 3) * 0.08, rng.randn(8) * 0.1,
+        rng.randn(1, 8, 3, 3) * 0.2, rng.randn(1) * 0.1)]
+    return x.to(device), ws
+
+
+@pytest.mark.parametrize("shape", [(1, 32, 5, 7), (2, 32, 37, 50),
+                                   (3, 32, 32, 48)])
+def test_decoder_tail_kernel_matches_plain(cuda, shape):
+    """Smaller than a 16x16 tile, not a multiple of it, a multiple of
+    it."""
+    torch.backends.cudnn.allow_tf32 = False
+    x, ws = _tail_inputs(shape, 11, cuda)
+    before = dt.LAUNCHES
+    out = dt.decoder_tail(x, *ws)
+    torch.cuda.synchronize()
+    assert dt.LAUNCHES == before + 1
+    ref = dt.decoder_tail_plain(x, *ws)
+    n, _, h, w = shape
+    assert out.shape == (n, h, w, 1) and out.is_contiguous()
+    assert (out - ref).abs().max().item() <= 1e-5
+
+
+def test_decoder_tail_gradient_on_card(cuda):
+    torch.backends.cudnn.allow_tf32 = False
+    x, ws = _tail_inputs((2, 32, 20, 24), 12, cuda)
+    grads = []
+    for fn in (dt.decoder_tail, dt.decoder_tail_plain):
+        leaves = [t.detach().clone().requires_grad_(True) for t in (x, *ws)]
+        fn(*leaves).sum().backward()
+        grads.append([t.grad for t in leaves])
+    for g, r in zip(*grads):
+        assert (g - r).abs().max().item() <= 1e-6 * r.abs().max().item()
+
+
+def test_make_tail_apply_on_card(cuda):
+    """The depth net through the fused tail vs its own forward at 64x96,
+    seeded weights with trained-like conditioning: one tail launch."""
+    import chip_smoke
+
+    torch.backends.cudnn.allow_tf32 = False
+    depth_net, _ = build_models(Config(),
+                                generator=torch.Generator().manual_seed(3))
+    chip_smoke.condition_like_trained(depth_net, torch)
+    imgs = torch.from_numpy(np.random.RandomState(4).rand(
+        3, 64, 96, 3).astype(np.float32)).to(cuda)
+    before = dt.LAUNCHES
+    with torch.no_grad():
+        (tail,) = make_tail_apply(depth_net)(imgs)
+        (plain,) = depth_net(imgs)
+    torch.cuda.synchronize()
+    assert dt.LAUNCHES == before + 1
+    assert tail.shape == plain.shape == (3, 64, 96, 1)
+    assert (tail - plain).abs().max().item() <= 1e-5
