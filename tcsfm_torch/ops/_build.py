@@ -10,10 +10,12 @@ PyTorch's headers takes minutes to compile, it needs ``ninja``, and it can
 wait forever on a stale lock file.
 
 The library goes to ``build/tcsfm_torch/<digest>/libtcsfm_kernels.so`` at
-the repository root, where ``<digest>`` hashes the sources and the flags,
-so an edited source builds anew and an unchanged one is reused. The build
-writes a temporary file and renames it into place; there is no lock file.
-Nothing is built at import: ``load()`` builds at first use.
+the repository root, where ``<digest>`` hashes the sources, the headers
+and the flags, so an edited source builds anew and an unchanged one is
+reused. The build writes a temporary file and renames it into place; there
+is no lock file. Nothing is built at import: ``load()`` builds at first
+use. ``build`` also takes other sources, extra flags and another library
+name, for measurement builds beside the library (``tail_probe``).
 """
 
 from __future__ import annotations
@@ -61,25 +63,29 @@ def _sources() -> list[Path]:
     return sorted(CSRC.glob("*.cu"))
 
 
-def library_path() -> Path:
-    """Where the library for the current sources, headers and flags lives."""
+def library_path(sources=None, flags=(), name=LIB_NAME) -> Path:
+    """Where the library for ``sources`` (by default ``csrc/*.cu``), the
+    headers beside the kernels and the flags lives."""
     h = hashlib.sha256()
-    for src in sorted(CSRC.glob("*.cu*")):
+    for src in [*(sources or _sources()), *sorted(CSRC.glob("*.cuh"))]:
         h.update(src.name.encode())
         h.update(src.read_bytes())
-    h.update(" ".join(NVCC_FLAGS).encode())
-    return BUILD_ROOT / h.hexdigest()[:16] / LIB_NAME
+    h.update(" ".join((*NVCC_FLAGS, *flags)).encode())
+    return BUILD_ROOT / h.hexdigest()[:16] / name
 
 
-def build() -> Path:
-    """Compile ``csrc/*.cu`` unless the library for them already exists."""
+def build(sources=None, flags=(), name=LIB_NAME) -> Path:
+    """Compile ``sources`` (by default ``csrc/*.cu``) with NVCC_FLAGS and
+    ``flags`` into the library ``name``, unless it already exists."""
     global build_log, build_seconds
-    out = library_path()
+    sources = sources or _sources()
+    out = library_path(sources, flags, name)
     if out.is_file():
         return out
     out.parent.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_name(f"{LIB_NAME}.tmp.{os.getpid()}")
-    cmd = [find_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, _sources())]
+    tmp = out.with_name(f"{name}.tmp.{os.getpid()}")
+    cmd = [find_nvcc(), *NVCC_FLAGS, *flags, "-o", str(tmp),
+           *map(str, sources)]
     t0 = time.monotonic()
     proc = subprocess.run(cmd, capture_output=True, text=True,
                           timeout=NVCC_TIMEOUT_S)

@@ -17,7 +17,9 @@ kernel, as there is none in JAX. A failed launch raises.
 The TPU kernel took the upconv's output in its subpixel phase layout
 ``[N, H/2, W/2, 4*32]`` and ran in bf16; the kernel takes the
 full-resolution ``[N, 32, H, W]`` that the port's decoder produces, NCHW
-contiguous on the card, in f32. (On the CPU the decoder's tensors are
+contiguous on the card, in f32, and runs its two wide convs on the tensor
+cores as f32-accurate 3xTF32 products (the design is in the source's
+header). (On the CPU the decoder's tensors are
 channels_last, which the NHWC images hand down; the plain version takes
 any layout.)
 """

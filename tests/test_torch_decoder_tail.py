@@ -23,10 +23,16 @@ Tolerances:
   net, under trained-like conditioning: poses atol 1e-6 at every iteration.
 
 The kernel itself runs only on the card: tests/test_torch_cuda.py. Here a
-stand-in library shows what the wrapper passes to it.
+stand-in library shows what the wrapper passes to it, and two emulations
+in plain PyTorch hold its design to the plain tail at 1e-6 (a tenth of the
+card's 1e-5): its 3xTF32 products (three ``F.conv2d`` terms on operands
+rounded to TF32), and its tiling (the tile and buffer sizes read from
+``csrc/decoder_tail.cu``, the reflected cell offsets, conv2's padded M,
+the persistent loop) at border tiles and images smaller than a tile.
 """
 
 import os
+import re
 import sys
 
 import jax
@@ -49,6 +55,7 @@ from tcsfm_torch.config import Config
 from tcsfm_torch.models.convert import _conv_w, depth_state_dict, from_flax
 from tcsfm_torch.models.depth import DepthNet, make_tail_apply, tail_weights
 from tcsfm_torch.models.pose import PoseNet
+from tcsfm_torch.ops import _build
 from tcsfm_torch.ops import decoder_tail as dt
 from tcsfm_torch.ops import grid_sample as gs
 
@@ -333,7 +340,38 @@ def test_launch_passes_pointers_sizes_and_card(monkeypatch):
     assert dt.LAUNCHES == before + 1 and len(calls) == 2
 
 
-@pytest.mark.parametrize("layout", ["nchw", "channels_last", "strided"])
+def test_build_keys_sources_flags_and_name(monkeypatch, tmp_path):
+    """``_build.build`` with a stand-in nvcc: the library from every
+    ``csrc/*.cu``, and the phase probe's build of ``decoder_tail.cu`` alone
+    with its flag under another name and digest; each built once, then
+    reused; a failed compile raises and leaves no file behind."""
+    log = tmp_path / "calls"
+    nvcc = tmp_path / "nvcc"
+    nvcc.write_text(f"#!{sys.executable}\nimport sys\n"
+                    f"open({str(log)!r}, 'a').write(' '.join(sys.argv) + "
+                    f"'\\n')\nif '-DFAIL' in sys.argv: sys.exit(1)\n"
+                    f"open(sys.argv[sys.argv.index('-o') + 1], 'w')\n")
+    nvcc.chmod(0o755)
+    monkeypatch.setattr(_build, "BUILD_ROOT", tmp_path / "build")
+    monkeypatch.setattr(_build, "find_nvcc", lambda: str(nvcc))
+    lib = _build.build()
+    tail = _build.CSRC / "decoder_tail.cu"
+    probe = _build.build([tail], ("-DTCSFM_TAIL_PROBE",), "libtail_probe.so")
+    assert lib.name == _build.LIB_NAME and probe.name == "libtail_probe.so"
+    assert lib.is_file() and probe.is_file() and lib.parent != probe.parent
+    assert (_build.build(), _build.build([tail], ("-DTCSFM_TAIL_PROBE",),
+                                         "libtail_probe.so")) == (lib, probe)
+    lib_call, probe_call = log.read_text().splitlines()
+    assert all(str(s) in lib_call for s in _build.CSRC.glob("*.cu"))
+    assert "-DTCSFM_TAIL_PROBE" not in lib_call
+    assert "-DTCSFM_TAIL_PROBE" in probe_call and str(tail) in probe_call
+    assert "grid_sample.cu" not in probe_call
+    with pytest.raises(RuntimeError, match="nvcc failed"):
+        _build.build([tail], ("-DFAIL",), "libfail.so")
+    assert not list((tmp_path / "build").glob("*/libfail.so*"))
+
+
+@pytest.mark.parametrize("layout",["nchw", "channels_last", "strided"])
 def test_cpu_dispatch_is_the_plain_tail(layout):
     """On the CPU any layout goes to the plain version (the port's CPU
     decoder hands the tail channels_last tensors)."""
@@ -376,3 +414,160 @@ def test_wrapper_rejects_bad_inputs(case):
     x, ws = _bad(case)
     with pytest.raises((TypeError, ValueError)):
         dt.decoder_tail(x, *ws)
+
+
+def _tail_inputs(shape, seed):
+    """x and weights drawn as chip_smoke.py's ``tail_inputs`` draws them."""
+    rng = np.random.RandomState(seed)
+    x = torch.from_numpy((rng.randn(*shape) * 0.5).astype(np.float32))
+    return x, [torch.from_numpy(a.astype(np.float32)) for a in (
+        rng.randn(C1, C1, 3, 3) * 0.08, rng.randn(C1) * 0.1,
+        rng.randn(C2, C1, 3, 3) * 0.08, rng.randn(C2) * 0.1,
+        rng.randn(1, C2, 3, 3) * 0.2, rng.randn(1) * 0.1)]
+
+
+def _tf32(t: torch.Tensor) -> torch.Tensor:
+    """f32 rounded to TF32's 10 mantissa bits, to nearest with ties away
+    from zero (``cvt.rna.tf32.f32``): the magnitude's bits + half an ulp,
+    the 13 low bits cleared."""
+    bits = t.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+
+def _split_rna(t: torch.Tensor):
+    hi = _tf32(t)
+    return hi, _tf32(t - hi)
+
+
+def _split(t: torch.Tensor):
+    """The kernel's split: Veltkamp's (c = 8193 v, hi = c - (c - v)) in f32
+    rounds v to nearest with TF32's 11 significant bits; lo = v - hi
+    exactly, of which the tensor core reads the TF32 bits (truncation)."""
+    c = t * 8193.0
+    hi = c - (c - t)
+    lo = t - hi
+    return hi, (lo.contiguous().view(torch.int32) & -0x2000).view(
+        torch.float32)
+
+
+def _conv_tf32(x, w, b, terms, split):
+    """A reflect-padded 3x3 conv with TF32 operands: one product
+    (``terms=1``) or the kernel's three, lo*hi + hi*lo + hi*hi."""
+    (xh, xl), (wh, wl) = split(F.pad(x, (1, 1, 1, 1), mode="reflect")), \
+        split(w)
+    if terms == 1:
+        return F.conv2d(xh, wh, b)
+    return F.conv2d(xl, wh, b) + F.conv2d(xh, wl) + F.conv2d(xh, wh)
+
+
+@pytest.mark.parametrize("split", ["rna", "kernel"])
+@pytest.mark.parametrize("shape", [(2, C1, 12, 16), (1, C1, 24, 40)])
+def test_3xtf32_split_holds_f32_accuracy(shape, split):
+    """conv1 and conv2 with 3xTF32 products (conv3 in f32, as the kernel's
+    FMAs) stay within 1e-6 of decoder_tail_plain on the sigmoid output
+    (measured 3.6e-7, as close to a float64 tail as the f32 one is), a
+    tenth of the card's 1e-5, with hi and lo each rounded to nearest
+    (ties away, ``cvt.rna.tf32.f32``) and with the kernel's split; one TF32
+    product leaves ~2.5e-4 (conv1's output ~7e-4 off), which would break
+    the 1e-5 check."""
+    split = {"rna": _split_rna, "kernel": _split}[split]
+    x, ws = _tail_inputs(shape, sum(shape))
+    w1, b1, w2, b2, w3, b3 = ws
+    ref = dt.decoder_tail_plain(x, *ws)
+    ref64 = dt.decoder_tail_plain(x.double(), *(w.double() for w in ws))
+    errs = {}
+    for terms in (1, 3):
+        y = F.elu(_conv_tf32(F.elu(x), w1, b1, terms, split))
+        y = F.elu(_conv_tf32(y, w2, b2, terms, split))
+        out = torch.sigmoid(dt._refl_conv(y, w3, b3)).permute(0, 2, 3, 1)
+        errs[terms] = (out - ref).abs().max().item()
+    f32_err = (ref.double() - ref64).abs().max().item()
+    assert errs[3] <= 1e-6 and errs[3] <= 2 * f32_err
+    assert errs[1] > 1e-5
+
+
+def _kernel_constants() -> dict:
+    """The integer constants of csrc/decoder_tail.cu (tile and stride
+    sizes), by name."""
+    src = (_build.CSRC / "decoder_tail.cu").read_text()
+    return {k: int(v) for k, v in re.findall(r"\b(k\w+) = (\d+)[,;]", src)}
+
+
+def _reflect(g: torch.Tensor, n: int) -> torch.Tensor:
+    g = g.clamp(-1, n)
+    return torch.where(g < 0, -g, torch.where(g >= n, 2 * n - 2 - g, g))
+
+
+def _mm3(a, b):
+    """a @ b in 3xTF32, as the kernel's mma.sync triples."""
+    (ah, al), (bh, bl) = _split(a), _split(b)
+    return al @ bh + ah @ bl + ah @ bh
+
+
+def _implicit_gemm(src, base, width, w, bias):
+    """elu(conv) at the cells whose top-left taps lie at ``base`` in the
+    flattened buffer ``src`` [C, cells] of row length ``width``: A [cells,
+    9 taps x C] (K tap-major), B the OIHW weights as [K, Cout]."""
+    taps = torch.tensor([dy * width + dx for dy in range(3)
+                         for dx in range(3)])
+    a = src[:, base[:, None] + taps].permute(1, 2, 0).reshape(len(base), -1)
+    return F.elu(_mm3(a, w.permute(2, 3, 1, 0).reshape(a.shape[1], -1))
+                 + bias)
+
+
+def _emulate_kernel(x, w1, b1, w2, b2, w3, b3, grid):
+    """The kernel's tiling in plain PyTorch: ``grid`` persistent blocks
+    take tiles in a fixed stride; per tile, elu(x) over rows r0-3.. and
+    columns c0-4.. (each at its reflected coordinate), f1's cells and
+    conv2's M (padded to a multiple of 16, padding rows clamped to the last
+    cell) each computed at its reflected coordinate from its taps' offsets
+    in the buffer before, conv3 at the in-image pixels. Checks that every
+    tap falls inside its buffer and every output pixel is written once."""
+    k = _kernel_constants()
+    th, tw = k["kTileH"], k["kTileW"]
+    h0, w0, h1, w1_, h2, w2_ = th + 6, tw + 8, th + 4, tw + 4, th + 2, tw + 2
+    n, _, hgt, wid = x.shape
+    tiles_h, tiles_w = -(-hgt // th), -(-wid // tw)
+    out = torch.full((n, hgt, wid), float("nan"))
+    for block in range(grid):
+        for tile in range(block, n * tiles_h * tiles_w, grid):
+            img, rc = divmod(tile, tiles_h * tiles_w)
+            r0, c0 = rc // tiles_w * th, rc % tiles_w * tw
+            gc = _reflect(torch.arange(c0 - 4, c0 - 4 + w0), wid)
+            if c0 >= 4 and c0 + tw + 4 <= wid:     # the 16-byte copies
+                assert torch.equal(gc, torch.arange(c0 - 4, c0 - 4 + w0))
+            gr = _reflect(torch.arange(r0 - 3, r0 - 3 + h0), hgt)
+            f0 = F.elu(x[img][:, gr][:, :, gc]).reshape(C1, -1)
+            m = torch.arange(h1 * w1_)
+            assert len(m) % 16 == 0
+            qr = _reflect(r0 - 2 + m // w1_, hgt) - (r0 - 3)
+            qc = _reflect(c0 - 2 + m % w1_, wid) - (c0 - 4)
+            assert qr.min() >= 1 and qr.max() <= h0 - 2
+            assert qc.min() >= 1 and qc.max() <= w0 - 2
+            f1 = _implicit_gemm(f0, (qr - 1) * w0 + qc - 1, w0, w1, b1)
+            m = torch.arange(-(-h2 * w2_ // 16) * 16).clamp(max=h2 * w2_ - 1)
+            qr = _reflect(r0 - 1 + m // w2_, hgt) - (r0 - 2)
+            qc = _reflect(c0 - 1 + m % w2_, wid) - (c0 - 2)
+            assert qr.min() >= 1 and qr.max() <= h1 - 2
+            assert qc.min() >= 1 and qc.max() <= w1_ - 2
+            f2 = _implicit_gemm(f1.t(), (qr - 1) * w1_ + qc - 1, w1_, w2,
+                                b2)[:h2 * w2_]
+            y = torch.sigmoid(F.conv2d(f2.t().reshape(1, C2, h2, w2_), w3,
+                                       b3))[0, 0]
+            hh, ww = min(th, hgt - r0), min(tw, wid - c0)
+            assert torch.isnan(out[img, r0:r0 + hh, c0:c0 + ww]).all()
+            out[img, r0:r0 + hh, c0:c0 + ww] = y[:hh, :ww]
+    assert not torch.isnan(out).any()
+    return out[..., None]
+
+
+@pytest.mark.parametrize("shape,grid", [
+    ((1, C1, 4, 4), 1),         # the minimum, one tile cut on all sides
+    ((1, C1, 5, 7), 2),         # smaller than a tile; more blocks than tiles
+    ((1, C1, 14, 40), 3),       # border tiles, partial at bottom and right
+    ((2, C1, 26, 72), 4)])      # interior columns; 18 tiles over 4 blocks
+def test_kernel_tiling_emulation_matches_plain(shape, grid):
+    """Within 1e-6 of the plain tail (measured <= 4.2e-7)."""
+    x, ws = _tail_inputs(shape, sum(shape))
+    out = _emulate_kernel(x, *ws, grid)
+    assert (out - dt.decoder_tail_plain(x, *ws)).abs().max().item() <= 1e-6

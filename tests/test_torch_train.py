@@ -311,3 +311,22 @@ def test_trainer_run_epoch(capsys):
     out = loop.run_epoch(loader[:1], epoch=1, phase="val")
     assert state.step == 2 and out["mean_disp"] < 1e-6
     assert "depth est has failed" in capsys.readouterr().out
+
+
+def test_step_grad_limits_are_capped_and_counted():
+    """The card's kernel- vs plain-sampler step check
+    (``chip_smoke.step_grad_limits``): a tensor whose plain step
+    reproduces itself to a quarter of 1e-4 is held at 1e-4, one that does
+    not at 4 times its spread, never above 1e-3; more than 20 such tensors
+    fail the check."""
+    import chip_smoke
+
+    spread = {"a": 1e-6, "b": 2.5e-5, "c": 1e-4, "d": 7.26e-4}
+    limits, widened = chip_smoke.step_grad_limits(spread, "case")
+    assert limits == {"a": 1e-4, "b": 1e-4, "c": 4e-4, "d": 1e-3}
+    assert widened == {"c": (1e-4, 4e-4), "d": (7.26e-4, 1e-3)}
+    many = {f"t{i}": 1e-4 for i in range(20)}
+    assert len(chip_smoke.step_grad_limits(many, "case")[1]) == 20
+    with pytest.raises(AssertionError, match="does not reproduce itself "
+                       "on 21 tensors"):
+        chip_smoke.step_grad_limits({**many, "x": 1e-4}, "case")
