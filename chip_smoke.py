@@ -7,8 +7,17 @@ Phases, each printing its elapsed seconds:
   0. watchdog, card name and power limit, torch and CUDA versions;
   1. build the CUDA kernels from ``tcsfm_torch/ops/csrc`` (nvcc + ctypes);
   2. each kernel against its plain PyTorch version on the card, at the main
-     path's shapes, with times (kernel, plain, one PyTorch library call)
-     and the kernel's memory/compute bound;
+     path's shapes, and its times: device time (launches back to back,
+     queued behind a spin kernel so that no host gap lies between them) in
+     turns with one PyTorch library call (kernel, library, library,
+     kernel), with the card's clocks, power and temperature sampled beside
+     them; the same with the L2 flushed before each launch; the wrapper
+     loop's time per call (what a Python caller pays); the plain
+     version's; and the kernel's memory/compute bound. The samplers are
+     timed at the main path's own coordinates (the coupled forward's three
+     re-warps, the refiners' jvps) and at ``smoke_coords``. The build
+     phase checks the forward sampler's SASS (128-bit loads and stores,
+     no calls);
   3. the main path: the coupled depth-pose forward at med res 192x640,
      B=6, S=2, 4 iterations, f32, full-width networks with seeded random
      weights; kernel launch counts, the same forward with the plain
@@ -48,6 +57,8 @@ from __future__ import annotations
 
 import contextlib
 import faulthandler
+import hashlib
+import itertools
 import json
 import statistics
 import subprocess
@@ -59,6 +70,19 @@ HBM_BYTES_PER_S = 3.35e12     # H100 SXM, NVIDIA data sheet
 F32_FLOPS_PER_S = 67e12       # H100 SXM f32 outside the tensor cores
 H, W, B, S, ITERS = 192, 640, 6, 2, 4
 KERNEL_TOL = 1e-5             # kernel vs plain: same arithmetic, same order
+# the kernels' device time: TIMED launches back to back, queued behind a
+# spin of SLEEP_CYCLES (~5 ms at 1.98 GHz, doubled until the host has
+# queued them all before the first starts), in TURNS rounds of kernel,
+# library, library, kernel, after WARMUP_S of work; and FLUSHED launches
+# each after FLUSH_BYTES written (the L2 holds 50 MB), for the L2-flushed
+# figure; nvidia-smi's CLOCK_FIELDS sampled every 50 ms beside the turns
+TIMED, TURNS, SLEEP_CYCLES, WARMUP_S = 50, 3, 10_000_000, 0.2
+FLUSHED, FLUSH_BYTES = 20, 256 * 2**20
+CLOCK_FIELDS = "clocks.sm,clocks.mem,power.draw,temperature.gpu"
+# value+Jacobian launches recorded from the refiners for the kernel's
+# timing at their own coordinates: one LM iteration's (7 jvps for each of
+# window_ba's two residual families)
+JVP_SAMPLES = 14
 BWD_COORDS_TOL = 1e-5         # of d_coords' largest magnitude: same order
 BWD_IMG_TOL = 1e-5            # d_img: atomics add in a changing order
 STEP_LOSS_TOL = 1e-6          # kernel- vs plain-sampler step: same forward
@@ -127,6 +151,7 @@ TAIL_POSE_TOL_FULL = 1e-3
 TAIL_SEEDS = (0, 1, 2, 3, 4)  # the smooth inputs of that comparison
 TAIL_SHAPES = ((18, 32, H, W), (2, 32, 190, 638))
 TAIL_TIMED = 15               # forwards of each route, in turns
+TAIL_TIMED_LAUNCHES = 10      # tail launches in one timed sample
 # the tail kernel's multiply-adds per output pixel, and per 12x32 tile as
 # it runs them (conv1 on the tile +-2, 16x36 cells; conv2 +-1, 14x34 cells
 # in 30 M-tiles of 16, run as 8 warps x 4 = 32 M-tiles, 512 rows, the
@@ -152,6 +177,10 @@ def check(ok: bool, msg: str) -> None:
 
 
 def time_ms(fn, iters: int = 50, warmup: int = 5) -> float:
+    """ms per call of ``fn`` between CUDA events around a loop of calls
+    from the host: what a Python caller pays per call (the wrapper loop).
+    Where the host takes longer per call than the card, this measures the
+    host."""
     import torch
 
     for _ in range(warmup):
@@ -164,6 +193,169 @@ def time_ms(fn, iters: int = 50, warmup: int = 5) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def queued(torch, enqueue) -> None:
+    """Call ``enqueue()`` behind a spin kernel and wait for the card.
+    ``enqueue`` records CUDA events around its work and returns the first
+    of them. The spin doubles until the host has queued all of the work
+    before the card reaches that event, so no host gap lies between the
+    events."""
+    cycles = SLEEP_CYCLES
+    while True:
+        torch.cuda.synchronize()
+        torch.cuda._sleep(cycles)
+        first = enqueue()
+        ahead = not first.query()
+        torch.cuda.synchronize()
+        if ahead:
+            return
+        check(cycles < 64 * SLEEP_CYCLES, f"the host did not queue the "
+              f"timed work within a spin of {cycles} cycles")
+        cycles *= 2
+
+
+def device_ms(torch, fn, iters: int = TIMED) -> float:
+    """Device ms per call of ``fn``: ``iters`` calls back to back on the
+    card, with no host gap between them (``queued``)."""
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in "se")
+
+    def enqueue():
+        start.record()
+        for _ in range(iters):
+            fn()
+        end.record()
+        return start
+
+    queued(torch, enqueue)
+    return start.elapsed_time(end) / iters
+
+
+def flushed_ms(torch, fn, flush, iters: int = FLUSHED) -> float:
+    """Median device ms of one call of ``fn`` with the L2 flushed before
+    it: ``flush`` (FLUSH_BYTES) is written before each call, outside the
+    call's events."""
+    events = [tuple(torch.cuda.Event(enable_timing=True) for _ in "se")
+              for _ in range(iters)]
+
+    def enqueue():
+        for start, end in events:
+            flush.zero_()
+            start.record()
+            fn()
+            end.record()
+        return events[0][0]
+
+    queued(torch, enqueue)
+    return statistics.median(s.elapsed_time(e) for s, e in events)
+
+
+def warm_up(torch, *fns) -> None:
+    """WARMUP_S of calls of ``fns``, so that the card's clocks are up."""
+    t = time.monotonic()
+    while time.monotonic() - t < WARMUP_S:
+        for fn in fns:
+            fn()
+        torch.cuda.synchronize()
+
+
+def in_turns(torch, kernel, library=None, iters=TIMED):
+    """Device ms per call (``device_ms``) of ``kernel`` and ``library`` in
+    TURNS rounds of kernel, library, library, kernel (kernel, kernel where
+    there is no library). Returns the two lists of samples in turn order."""
+    k, lib = [], []
+    for _ in range(TURNS):
+        k.append(device_ms(torch, kernel, iters))
+        if library is not None:
+            lib += [device_ms(torch, library, iters),
+                    device_ms(torch, library, iters)]
+        k.append(device_ms(torch, kernel, iters))
+    return k, lib
+
+
+def with_clocks(fn):
+    """``fn()`` while ``nvidia-smi`` samples the card's SM and memory
+    clocks, power draw and temperature every 50 ms (the first sample taken
+    before ``fn`` starts). Returns fn's result and each quantity's range
+    over the samples."""
+    proc = subprocess.Popen(
+        ["nvidia-smi", f"--query-gpu={CLOCK_FIELDS}",
+         "--format=csv,noheader,nounits", "-lms", "50"],
+        stdout=subprocess.PIPE, stderr=subprocess.DEVNULL, text=True)
+    try:
+        first = proc.stdout.readline()
+        check(bool(first.strip()), "nvidia-smi gave no clock sample")
+        result = fn()
+    finally:
+        proc.terminate()
+        rest = proc.communicate(timeout=30)[0]
+    samples = [[float(v) for v in line.split(",")]
+               for line in (first + rest).splitlines()
+               if len(line.split(",")) == 4
+               and "N/A" not in line]
+    check(bool(samples), f"no readable clock sample: {first!r}")
+    clocks = {name: [min(col), max(col)] for name, col in zip(
+        ("sm_mhz", "mem_mhz", "power_w", "temp_c"), zip(*samples))}
+    clocks["samples"] = len(samples)
+    return result, clocks
+
+
+def timed(torch, kernel, library, flush, library_key="library_ms",
+          iters=TIMED):
+    """A kernel's times on the card: device time in turns with a library
+    call (``in_turns``; median and range), the clocks beside them, the
+    wrapper loop's time per call (``time_ms``), and the device time of one
+    call with the L2 flushed before it (``flushed_ms``), of both. The
+    library's figures go under ``library_key`` (``library_ms`` where one
+    library call computes the same function)."""
+    (k, lib), clocks = with_clocks(lambda: in_turns(torch, kernel, library,
+                                                    iters))
+    row = dict(ms=statistics.median(k), ms_range=[min(k), max(k)],
+               ms_turns=k, launches_per_sample=iters,
+               wrapper_ms=time_ms(kernel),
+               ms_l2_flushed=flushed_ms(torch, kernel, flush), clocks=clocks)
+    if library is not None:
+        row.update({
+            library_key: statistics.median(lib),
+            f"{library_key}_range": [min(lib), max(lib)],
+            f"{library_key}_turns": lib,
+            f"{library_key}_l2_flushed": flushed_ms(torch, library, flush),
+            "faster_in_every_turn": all(
+                max(k[2 * i:2 * i + 2]) < min(lib[2 * i:2 * i + 2])
+                for i in range(TURNS))})
+    return row
+
+
+def us(ms) -> str:
+    return f"{ms * 1e3:.2f}"
+
+
+def times_text(row, library_key="library_ms", library="library") -> str:
+    """The times of ``timed`` as one line of text."""
+    text = (f"device {us(row['ms'])} us (range {us(row['ms_range'][0])}-"
+            f"{us(row['ms_range'][1])}, {2 * TURNS} samples of "
+            f"{row['launches_per_sample']} launches)")
+    if row.get(library_key) is not None:
+        lo, hi = row[f"{library_key}_range"]
+        text += (f", {library} {us(row[library_key])} us (range {us(lo)}-"
+                 f"{us(hi)}), kernel faster in every turn: "
+                 f"{row['faster_in_every_turn']}")
+    text += (f"; L2 flushed: kernel {us(row['ms_l2_flushed'])} us"
+             + (f", {library} {us(row[library_key + '_l2_flushed'])} us"
+                if row.get(library_key) is not None else "")
+             + f"; wrapper loop {us(row['wrapper_ms'])} us")
+    c = row["clocks"]
+    return text + (f"; clocks SM {c['sm_mhz'][0]:.0f}-{c['sm_mhz'][1]:.0f} "
+                   f"MHz, memory {c['mem_mhz'][0]:.0f}-{c['mem_mhz'][1]:.0f} "
+                   f"MHz, {c['power_w'][0]:.2f}-{c['power_w'][1]:.2f} W, "
+                   f"{c['temp_c'][0]:.0f}-{c['temp_c'][1]:.0f} C over "
+                   f"{c['samples']} samples")
+
+
+def cycling(pairs, fn):
+    """A call of ``fn`` on the next of ``pairs`` (in turn) each time."""
+    it = itertools.cycle(pairs)
+    return lambda: fn(*next(it))
 
 
 def smoke_coords(b: int, h: int, w: int, seed: int):
@@ -220,55 +412,196 @@ def ptxas_by_kernel(log: str) -> dict:
     return {k: "; ".join(v) for k, v in found.items()}
 
 
-def phase_kernels(torch, gs):
-    """Kernel vs plain at [24,192,640,C], C=3 (main path) and C=4."""
-    import numpy as np
+def sass_of_forward(lib) -> dict:
+    """``cuobjdump -sass`` of the library's forward sampler kernels: for
+    each instance, by its template arguments (C, with the derivatives),
+    the counts of its global loads and stores, of those that move 128
+    bits, and of its calls (a division routine is a call)."""
+    import re
+    from pathlib import Path
+
+    from tcsfm_torch.ops._build import find_nvcc
+
+    text = subprocess.run(
+        [str(Path(find_nvcc()).parent / "cuobjdump"), "-sass", str(lib)],
+        capture_output=True, text=True, timeout=120, check=True).stdout
+    found = {}
+    for part in text.split("Function : ")[1:]:
+        m = re.search(r"grid_sample_fwd_kernelILi(\d+)ELb([01])E",
+                      part.split()[0])
+        if m:
+            found[int(m.group(1)), m.group(2) == "1"] = {
+                k: len(re.findall(rf"\b{op}\b", part)) for k, op in (
+                    ("ldg", r"LDG(\.\w+)*"), ("ldg128", r"LDG(\.\w+)*\.128"),
+                    ("stg", r"STG(\.\w+)*"), ("stg128", r"STG(\.\w+)*\.128"),
+                    ("calls", r"CALL(\.\w+)*"))}
+    return found
+
+
+def library_sampler(img, coords):
+    """``F.grid_sample`` on the NHWC image (an NCHW view of it): one
+    PyTorch call that computes the forward kernel's function."""
     import torch.nn.functional as F
+
+    return F.grid_sample(img.permute(0, 3, 1, 2), coords, mode="bilinear",
+                         padding_mode="zeros", align_corners=False)
+
+
+def bound(nbytes: float, flops: float) -> dict:
+    """The least time for ``nbytes`` moved and ``flops`` f32 operations."""
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = flops / F32_FLOPS_PER_S * 1e3
+    return dict(bound_ms=max(bytes_ms, ops_ms),
+                bound_by="bytes" if bytes_ms >= ops_ms else "operations")
+
+
+def main_path_warps(torch, gs, cfg, build_models, coupled_forward):
+    """The (image, coords) pairs that the coupled forward's ITERS - 1
+    pose-only re-warps hand to the sampler: phase "slice"'s forward (med
+    res, B=6, S=2) under phase "tail"'s trained-like conditioning and
+    smooth images, recorded through ``coupled_forward``'s ``sampler=``."""
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    depth_net, pose_net = build_models(
+        cfg, device="cuda", generator=torch.Generator().manual_seed(0))
+    condition_like_trained(depth_net, torch)
+    inputs = [torch.from_numpy(a).cuda()
+              for a in smooth_inputs(torch, B, S, H, W, seed=0)]
+    warps = []
+
+    def recording(img, coords, tail=None):
+        warps.append((img, coords))
+        return gs.grid_sample(img, coords, tail)
+
+    coupled_forward(depth_net, pose_net, *inputs, cfg, sampler=recording)
+    check(len(warps) == ITERS - 1 and all(
+        tuple(img.shape) == (2 * S * B, H, W, 3) for img, _ in warps),
+        f"the coupled forward's re-warps: {[tuple(i.shape) for i, _ in warps]}")
+    return warps
+
+
+def refiner_jvp_samples(torch, gs, build_models):
+    """The (image, coords) pairs of the first JVP_SAMPLES value+Jacobian
+    launches at full resolution of phase "refiners"' ``window_ba``
+    ([RB,H,W,3]) and ``chain_ba`` ([BLOCK-2,H,W,3]) calls, on that
+    phase's inputs: the first LM iteration's jvps (``iters=1`` gives the
+    same ones; chain_ba's coarse level runs before them)."""
+    from tcsfm_torch.config import Config
+    from tcsfm_torch.solver.ba import chain_ba, window_ba
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = Config(iterations=RITERS, num_scales=1, minibatch=RB,
+                 img_resolution="med")
+    depth_net, pose_net, (tgt, src, K), block = refiner_inputs(
+        torch, cfg, build_models, seed=7)
+    depths, poses = forward_depths(torch, cfg, depth_net, pose_net, tgt, src,
+                                   K)
+    seen = {RB: [], BLOCK - 2: []}
+    launch = gs._launch_fwd_grads
+
+    def recording(img, coords):
+        got = seen.get(img.shape[0])
+        if (got is not None and tuple(img.shape[1:3]) == (H, W)
+                and len(got) < JVP_SAMPLES):
+            got.append((img, coords))
+        return launch(img, coords)
+
+    gs._launch_fwd_grads = recording
+    try:
+        window_ba(poses[0], poses[1], depths[0], tgt, src[0], src[1],
+                  depths[1], depths[2], K, iters=1, depth_prior_weight=0.1)
+        chain_ba(*block, iters=1, depth_prior_weight=0.1, pyramid_levels=2)
+    finally:
+        gs._launch_fwd_grads = launch
+    check(all(len(v) == JVP_SAMPLES for v in seen.values()),
+          f"recorded value+Jacobian launches: "
+          f"{ {k: len(v) for k, v in seen.items()} }")
+    return seen
+
+
+def sampler_row(torch, gs, pairs, flush):
+    """The forward kernel against its plain version and ``F.grid_sample``
+    on each (img, coords) of ``pairs``, and timed (``timed``) cycling
+    through them."""
+    err = lib_err = 0.0
+    for img, coords in pairs:
+        out = gs.grid_sample(img, coords)
+        err = max(err, (out - gs.grid_sample_plain(img, coords)).abs().max()
+                  .item())
+        lib_err = max(lib_err, (library_sampler(img, coords).permute(
+            0, 2, 3, 1) - out).abs().max().item())
+    kernel = cycling(pairs, gs.grid_sample)
+    library = cycling(pairs, library_sampler)
+    warm_up(torch, kernel, library)
+    row = timed(torch, kernel, library, flush)
+    img, coords = pairs[0]
+    row.update(max_abs_err=err, max_abs_err_library=lib_err,
+               plain_ms=time_ms(lambda: gs.grid_sample_plain(img, coords),
+                                iters=10))
+    return row
+
+
+def phase_kernels(torch, gs, warps, flush):
+    """The forward kernel vs its plain version at [24,192,640,C], and its
+    times: C=3 at the main path's own coordinates (``warps``) and at
+    ``smoke_coords``, C=4 at ``smoke_coords``. Returns the rows by C, the
+    main path's (C=3) holding the smoke_coords row under "smoke_coords"."""
+    import numpy as np
 
     n = 2 * S * B
     coords = torch.from_numpy(smoke_coords(n, H, W, seed=1)).cuda()
+    imgs = {c: torch.from_numpy(np.random.RandomState(c).rand(
+        n, H, W, c).astype(np.float32)).cuda() for c in (3, 4)}
     rows = {}
-    for c in (3, 4):
-        img = torch.from_numpy(
-            np.random.RandomState(c).rand(n, H, W, c).astype(np.float32)).cuda()
-        out = gs.grid_sample(img, coords)
-        ref = gs.grid_sample_plain(img, coords)
-        torch.cuda.synchronize()
-        err = (out - ref).abs().max().item()
-        check(err <= KERNEL_TOL, f"grid_sample C={c}: kernel vs plain "
-              f"max abs err {err} > {KERNEL_TOL}")
-        lib_img = img.permute(0, 3, 1, 2)
-
-        def library():
-            return F.grid_sample(lib_img, coords, mode="bilinear",
-                                 padding_mode="zeros", align_corners=False)
-
-        lib_err = (library().permute(0, 2, 3, 1) - out).abs().max().item()
-        ms = time_ms(lambda: gs.grid_sample(img, coords))
-        plain_ms = time_ms(lambda: gs.grid_sample_plain(img, coords), iters=10)
-        library_ms = time_ms(library)
-        nbytes = (img.numel() + coords.numel() + out.numel()) * 4
-        flops = n * H * W * (18 + 7 * c)
-        bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
-        ops_ms = flops / F32_FLOPS_PER_S * 1e3
-        bound_ms = max(bytes_ms, ops_ms)
-        rows[c] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                       bound_ms=bound_ms,
-                       bound_by="bytes" if bytes_ms >= ops_ms else "operations",
-                       library_ms=library_ms)
-        say("kernels", f"grid_sample [{n},{H},{W},{c}]: max|kernel-plain| "
-            f"{err:.3e} (limit {KERNEL_TOL}), max|kernel-F.grid_sample| "
-            f"{lib_err:.3e}; kernel {ms * 1e3:.2f} us, plain "
-            f"{plain_ms * 1e3:.2f} us, F.grid_sample {library_ms * 1e3:.2f} us;"
-            f" bound {bound_ms * 1e3:.2f} us ({rows[c]['bound_by']}: "
-            f"{nbytes / 1e6:.2f} MB), kernel at {bound_ms / ms:.1%} of bound")
+    for c, label, pairs in ((3, "main-path coords", warps),
+                            (3, "smoke_coords", [(imgs[3], coords)]),
+                            (4, "smoke_coords", [(imgs[4], coords)])):
+        row = sampler_row(torch, gs, pairs, flush)
+        check(row["max_abs_err"] <= KERNEL_TOL, f"grid_sample C={c}, "
+              f"{label}: kernel vs plain max abs err {row['max_abs_err']} > "
+              f"{KERNEL_TOL}")
+        nbytes = (2 + 2 * c) * n * H * W * 4     # img, coords, out
+        row.update(bound(nbytes, n * H * W * (18 + 7 * c)), coords=label)
+        row["in_view"] = statistics.mean(
+            (co.abs() <= 1).all(-1).float().mean().item() for _, co in pairs)
+        say("kernels", f"grid_sample [{n},{H},{W},{c}], {label}"
+            f"{f' ({len(pairs)} re-warps in turn)' if len(pairs) > 1 else ''}"
+            f", {row['in_view']:.1%} of the pixels in view"
+            f": max|kernel-plain| {row['max_abs_err']:.3e} (limit "
+            f"{KERNEL_TOL}), max|kernel-F.grid_sample| "
+            f"{row['max_abs_err_library']:.3e}; "
+            + times_text(row, library="F.grid_sample")
+            + f"; plain {us(row['plain_ms'])} us; bound "
+            f"{us(row['bound_ms'])} us ({row['bound_by']}: "
+            f"{nbytes / 1e6:.2f} MB), kernel at "
+            f"{row['bound_ms'] / row['ms']:.1%} of bound")
+        if label == "smoke_coords" and c == 3:
+            rows[3]["smoke_coords"] = row
+        else:
+            rows[c] = row
+    # what the card's own copy reaches on these bytes: the image copied
+    # (read once, written once), device time as above
+    img = warps[0][0]
+    dst = torch.empty_like(img)
+    copy_ms = device_ms(torch, lambda: dst.copy_(img))
+    moved = 2 * img.numel() * 4
+    per_ms = moved / copy_ms                  # bytes a ms
+    needed = rows[3]["bound_ms"] * HBM_BYTES_PER_S / 1e3
+    rows[3].update(copy_ms=copy_ms, copy_tb_s=per_ms / 1e9,
+                   bytes_at_copy_rate_ms=needed / per_ms)
+    say("kernels", f"the card's copy_ of [{n},{H},{W},3]: {us(copy_ms)} us "
+        f"for {moved / 1e6:.2f} MB, {per_ms / 1e9:.3f} TB/s; at that rate "
+        f"the forward's {needed / 1e6:.2f} MB take {us(needed / per_ms)} us, "
+        f"the kernel at {needed / per_ms / rows[3]['ms']:.1%} of it")
     return rows
 
 
-def phase_bwd_kernels(torch, gs):
+def phase_bwd_kernels(torch, gs, flush):
     """The backward kernels vs grid_sample_bwd_plain at the training
     step's shapes: d_coords only at [24,192,640,3] (the solver's warps),
-    d_img for channel 3 at [24,192,640,4] (the loss warp)."""
+    d_img for channel 3 at [24,192,640,4] (the loss warp); their times
+    beside aten.grid_sampler_2d_backward's."""
     import numpy as np
 
     n = 2 * S * B
@@ -299,87 +632,102 @@ def phase_bwd_kernels(torch, gs):
             return torch.ops.aten.grid_sampler_2d_backward(
                 lib_g, lib_img, coords, 0, 0, False, mask)
 
+        def kernel():
+            return gs.grid_sample_bwd(img, coords, g, grad_ch)
+
         lib_err = (library()[1] - d_coords).abs().max().item() / scale
-        ms = time_ms(lambda: gs.grid_sample_bwd(img, coords, g, grad_ch))
-        plain_ms = time_ms(lambda: gs.grid_sample_bwd_plain(
-            img, coords, g, grad_ch), iters=10)
-        library_ms = time_ms(library)
+        warm_up(torch, kernel, library)
+        row = timed(torch, kernel, library, flush)
         # each input read once, each output written once: img, coords, g;
         # d_coords and the d_img channels (its zero-fill not counted)
         planes = c + 2 + c + 2 + len(grad_ch)
         nbytes = planes * n * H * W * 4
-        flops = n * H * W * (20 + 14 * c + 8 * len(grad_ch))
-        bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
-        ops_ms = flops / F32_FLOPS_PER_S * 1e3
-        bound_ms = max(bytes_ms, ops_ms)
-        rows[name] = dict(max_abs_err=max(err, img_err), ms=ms,
-                          plain_ms=plain_ms, bound_ms=bound_ms,
-                          bound_by="bytes" if bytes_ms >= ops_ms else
-                          "operations", library_ms=library_ms)
+        row.update(bound(nbytes, n * H * W * (20 + 14 * c + 8 * len(grad_ch))),
+                   max_abs_err=max(err, img_err), coords="smoke_coords",
+                   plain_ms=time_ms(lambda: gs.grid_sample_bwd_plain(
+                       img, coords, g, grad_ch), iters=10),
+                   d_coords_sha256=hashlib.sha256(
+                       d_coords.cpu().numpy().tobytes()).hexdigest()[:16])
+        rows[name] = row
         say("kernels", f"{name} [{n},{H},{W},{c}] grad_ch={grad_ch}: "
             f"max|kernel-plain| d_coords {err:.3e} (limit {BWD_COORDS_TOL} "
             f"x {scale:.3e}), d_img {img_err:.3e} (limit {BWD_IMG_TOL}); "
             f"max|kernel-aten| d_coords {lib_err:.3e} of its magnitude; "
-            f"kernel {ms * 1e3:.2f} us (d_img zero-fill included), plain "
-            f"{plain_ms * 1e3:.2f} us, aten.grid_sampler_2d_backward "
-            f"{library_ms * 1e3:.2f} us; bound {bound_ms * 1e3:.2f} us "
-            f"({rows[name]['bound_by']}: {nbytes / 1e6:.2f} MB), kernel at "
-            f"{bound_ms / ms:.1%} of bound")
+            f"d_coords sha256 {row['d_coords_sha256']}; kernel (d_img "
+            f"zero-fill included) "
+            + times_text(row, library="aten.grid_sampler_2d_backward")
+            + f"; plain {us(row['plain_ms'])} us; "
+            f"bound {us(row['bound_ms'])} us ({row['bound_by']}: "
+            f"{nbytes / 1e6:.2f} MB), kernel at "
+            f"{row['bound_ms'] / row['ms']:.1%} of bound")
     return rows
 
 
-def phase_grads_kernel(torch, gs):
+def phase_grads_kernel(torch, gs, jvp_samples, flush):
     """The value+Jacobian kernel vs grid_sample_with_grads_plain at the
-    refiners' shapes: the window batch [4,192,640,3] and chain_ba's
-    interior windows [10,192,640,3]."""
+    refiners' shapes, the window batch [4,192,640,3] and chain_ba's
+    interior windows [10,192,640,3], at the refiners' own coordinates
+    (``jvp_samples``) and at ``smoke_coords``, and its times. Returns the
+    rows by batch, each holding its smoke_coords row under
+    "smoke_coords"."""
     import numpy as np
-    import torch.nn.functional as F
 
     rows = {}
     for b in (RB, BLOCK - 2):
-        coords = torch.from_numpy(smoke_coords(b, H, W, seed=1)).cuda()
-        img = torch.from_numpy(np.random.RandomState(20 + b).rand(
-            b, H, W, 3).astype(np.float32)).cuda()
-        got = gs.grid_sample_with_grads(img, coords)
-        ref = gs.grid_sample_with_grads_plain(img, coords)
-        torch.cuda.synchronize()
-        err = (got[0] - ref[0]).abs().max().item()
-        check(err <= KERNEL_TOL, f"with_grads [{b},{H},{W},3]: out max abs "
-              f"err {err} > {KERNEL_TOL}")
-        errs = []
-        for name, a, r in (("gx", got[1], ref[1]), ("gy", got[2], ref[2])):
-            scale = r.abs().max().item()
-            e = (a - r).abs().max().item()
-            check(e <= GRADS_TOL * scale, f"with_grads [{b},{H},{W},3]: "
-                  f"{name} max abs err {e} > {GRADS_TOL} x {scale}")
-            errs.append(e / scale)
-        lib_img = img.permute(0, 3, 1, 2)
-
-        def context():
-            return F.grid_sample(lib_img, coords, mode="bilinear",
-                                 padding_mode="zeros", align_corners=False)
-
-        ms = time_ms(lambda: gs.grid_sample_with_grads(img, coords))
-        plain_ms = time_ms(lambda: gs.grid_sample_with_grads_plain(
-            img, coords), iters=10)
-        context_ms = time_ms(context)
-        nbytes = (3 + 2 + 9) * b * H * W * 4
-        flops = b * H * W * (18 + 3 * (7 + 12))
-        bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
-        ops_ms = flops / F32_FLOPS_PER_S * 1e3
-        bound_ms = max(bytes_ms, ops_ms)
-        rows[b] = dict(max_abs_err=max(err, *errs), ms=ms, plain_ms=plain_ms,
-                       bound_ms=bound_ms, bound_by="bytes" if bytes_ms >=
-                       ops_ms else "operations", library_ms=None,
-                       grid_sample_value_only_ms=context_ms)
-        say("kernels", f"grid_sample_with_grads [{b},{H},{W},3]: "
-            f"max|kernel-plain| out {err:.3e} (limit {KERNEL_TOL}), gx, gy "
-            f"{errs[0]:.3e}, {errs[1]:.3e} of their magnitude (limit "
-            f"{GRADS_TOL}); kernel {ms * 1e3:.2f} us, plain "
-            f"{plain_ms * 1e3:.2f} us, F.grid_sample value only (context, no "
-            f"library call gives the derivatives) {context_ms * 1e3:.2f} us; "
-            f"bound {bound_ms * 1e3:.2f} us ({rows[b]['bound_by']}: "
-            f"{nbytes / 1e6:.2f} MB), kernel at {bound_ms / ms:.1%} of bound")
+        smoke = (torch.from_numpy(np.random.RandomState(20 + b).rand(
+            b, H, W, 3).astype(np.float32)).cuda(),
+            torch.from_numpy(smoke_coords(b, H, W, seed=1)).cuda())
+        for label, pairs in (("refiners' coords", jvp_samples[b]),
+                             ("smoke_coords", [smoke])):
+            err, errs = 0.0, [0.0, 0.0]
+            for img, coords in pairs:
+                got = gs.grid_sample_with_grads(img, coords)
+                ref = gs.grid_sample_with_grads_plain(img, coords)
+                err = max(err, (got[0] - ref[0]).abs().max().item())
+                for i in (1, 2):
+                    scale = ref[i].abs().max().item()
+                    e = (got[i] - ref[i]).abs().max().item()
+                    check(e <= GRADS_TOL * scale, f"with_grads [{b},{H},{W},"
+                          f"3], {label}: {'gx' if i == 1 else 'gy'} max abs "
+                          f"err {e} > {GRADS_TOL} x {scale}")
+                    errs[i - 1] = max(errs[i - 1], e / scale)
+            check(err <= KERNEL_TOL, f"with_grads [{b},{H},{W},3], {label}: "
+                  f"out max abs err {err} > {KERNEL_TOL}")
+            kernel = cycling(pairs, gs.grid_sample_with_grads)
+            context = cycling(pairs, library_sampler)
+            warm_up(torch, kernel, context)
+            key = "grid_sample_value_only_ms"
+            row = timed(torch, kernel, context, flush, library_key=key)
+            img, coords = pairs[0]
+            nbytes = (3 + 2 + 9) * b * H * W * 4
+            row.update(bound(nbytes, b * H * W * (18 + 3 * (7 + 12))),
+                       max_abs_err=max(err, *errs), library_ms=None,
+                       coords=label, plain_ms=time_ms(
+                           lambda: gs.grid_sample_with_grads_plain(
+                               img, coords), iters=10))
+            say("kernels", f"grid_sample_with_grads [{b},{H},{W},3], {label}"
+                f"{f' ({len(pairs)} launches in turn)' if len(pairs) > 1 else ''}"
+                f": max|kernel-plain| out {err:.3e} (limit {KERNEL_TOL}), gx, "
+                f"gy {errs[0]:.3e}, {errs[1]:.3e} of their magnitude (limit "
+                f"{GRADS_TOL}); no library call gives the derivatives; "
+                + times_text(row, key, "F.grid_sample value only")
+                + f"; plain {us(row['plain_ms'])} us; bound "
+                f"{us(row['bound_ms'])} us ({row['bound_by']}: "
+                f"{nbytes / 1e6:.2f} MB), kernel at "
+                f"{row['bound_ms'] / row['ms']:.1%} of bound")
+            if label == "smoke_coords":
+                rows[b]["smoke_coords"] = row
+            else:
+                rows[b] = row
+    # the launch floor: one launch on one pixel, back to back
+    tiny = [(torch.rand(1, 1, 1, 3, device="cuda"),
+             torch.zeros(1, 1, 1, 2, device="cuda"))]
+    floor = device_ms(torch, cycling(tiny, gs.grid_sample_with_grads))
+    rows[RB]["launch_floor_ms"] = floor
+    say("kernels", f"grid_sample_with_grads launch floor: {us(floor)} us a "
+        f"launch at [1,1,1,3], back to back ({floor / rows[RB]['ms']:.1%} of "
+        f"the [{RB},{H},{W},3] row's device time, "
+        f"{floor / rows[RB]['bound_ms']:.1%} of its bound)")
     return rows
 
 
@@ -397,7 +745,7 @@ def tail_inputs(torch, shape, seed):
     return x.cuda(), ws
 
 
-def phase_tail_kernel(torch, dt):
+def phase_tail_kernel(torch, dt, flush):
     """The decoder tail kernel vs decoder_tail_plain at the coupled
     forward's shape [18,32,192,640] and at an odd shape [2,32,190,638]
     (tiles on both borders cut short); at the main shape the times of the
@@ -433,10 +781,15 @@ def phase_tail_kernel(torch, dt):
         with torch.no_grad():
             return seq(x).permute(0, 2, 3, 1)
 
+    def kernel():
+        return dt.decoder_tail(x, *ws)
+
     seq_err = (sequence() - out).abs().max().item()
-    ms = time_ms(lambda: dt.decoder_tail(x, *ws), iters=20)
+    warm_up(torch, kernel, sequence)
+    key = "library_sequence_ms"
+    row = timed(torch, kernel, sequence, flush, library_key=key,
+                iters=TAIL_TIMED_LAUNCHES)
     plain_ms = time_ms(lambda: dt.decoder_tail_plain(x, *ws), iters=20)
-    seq_ms = time_ms(sequence, iters=20)
     n, _, h, w = x.shape
     tiles = n * math.ceil(h / TAIL_TILE[0]) * math.ceil(w / TAIL_TILE[1])
     halo = tiles * TAIL_TILE_MACS / (n * h * w * TAIL_MACS)
@@ -451,20 +804,21 @@ def phase_tail_kernel(torch, dt):
              ) * 1e3
     ops_ms = min(fma_ms, tc_ms)
     bound_ms = max(bytes_ms, ops_ms)
-    row = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+    ms = row["ms"]
+    row.update(max_abs_err=err, plain_ms=plain_ms, bound_ms=bound_ms,
                bound_by="bytes" if bytes_ms >= ops_ms else "operations",
-               library_ms=None, library_sequence_ms=seq_ms,
-               bound_f32_fma_ms=max(bytes_ms, fma_ms), halo_mac_ratio=halo)
+               library_ms=None, bound_f32_fma_ms=max(bytes_ms, fma_ms),
+               halo_mac_ratio=halo)
     say("kernels", f"decoder_tail {list(x.shape)}: max|kernel-plain| "
         f"{err:.3e} (limit {TAIL_TOL}), max|kernel-cuDNN layers| "
-        f"{seq_err:.3e}; kernel {ms * 1e3:.2f} us, plain "
-        f"{plain_ms * 1e3:.2f} us, the default route's cuDNN layer sequence "
-        f"(3 F.pad + F.conv2d, ELU, sigmoid; no single library call) "
-        f"{seq_ms * 1e3:.2f} us; bound {bound_ms * 1e3:.2f} us "
+        f"{seq_err:.3e}; " + times_text(
+            row, key, "the default route's cuDNN layer sequence (3 F.pad + "
+            "F.conv2d, ELU, sigmoid; no single library call)")
+        + f"; plain {us(plain_ms)} us; bound {us(bound_ms)} us "
         f"({row['bound_by']}: {flops / 1e9:.2f} GFLOP as 3xTF32 on the "
         f"tensor cores, {nbytes / 1e6:.2f} MB), kernel at "
         f"{bound_ms / ms:.1%} of it; f32-FMA bound "
-        f"{row['bound_f32_fma_ms'] * 1e3:.2f} us, kernel at "
+        f"{us(row['bound_f32_fma_ms'])} us, kernel at "
         f"{row['bound_f32_fma_ms'] / ms:.1%} of it; executed multiply-adds "
         f"{halo:.3f}x the output's (halo recompute)")
     return row
@@ -1254,6 +1608,40 @@ def phase_tail(torch, gs, dt, cfg, build_models, coupled_forward):
     return counts[:2]
 
 
+def med_config():
+    """The main path's configuration: med res, B=6, 4 iterations."""
+    from tcsfm_torch.config import Config
+
+    cfg = Config(iterations=ITERS, num_scales=1, minibatch=B,
+                 img_resolution="med")
+    check(cfg.image_size == (H, W), f"med res is {cfg.image_size}")
+    return cfg
+
+
+def phase_all_kernels(torch, cfg):
+    """Phase "kernels": every kernel against its plain version on the card
+    and timed, the samplers at the main path's own coordinates (the
+    coupled forward's re-warps, the refiners' jvps) and at
+    ``smoke_coords``. Returns the forward rows by C (and the backward rows
+    by name), the value+Jacobian rows by batch, and the tail's row. Runs on
+    whatever ``tcsfm_torch`` is imported, so a parent tree's kernels are
+    timed the same way from its own checkout (README):
+    ``python3 -c "import torch, chip_smoke as c;
+    c.phase_all_kernels(torch, c.med_config())"``."""
+    from tcsfm_torch.infer import build_models, coupled_forward
+    from tcsfm_torch.ops import decoder_tail as dt
+    from tcsfm_torch.ops import grid_sample as gs
+
+    warps = main_path_warps(torch, gs, cfg, build_models, coupled_forward)
+    jvp_samples = refiner_jvp_samples(torch, gs, build_models)
+    flush = torch.empty(FLUSH_BYTES // 4, device="cuda")
+    rows = phase_kernels(torch, gs, warps, flush)
+    rows.update(phase_bwd_kernels(torch, gs, flush))
+    grads_rows = phase_grads_kernel(torch, gs, jvp_samples, flush)
+    tail_row = phase_tail_kernel(torch, dt, flush)
+    return rows, grads_rows, tail_row
+
+
 def main() -> int:
     faulthandler.dump_traceback_later(WATCHDOG_S, exit=True)
     import torch
@@ -1285,20 +1673,25 @@ def main() -> int:
     _build.load()
     say("build", f"{lib.relative_to(_build.BUILD_ROOT.parents[1])}, nvcc "
         f"{_build.build_seconds:.2f} s")
+    for (c, grads), n in sorted(sass_of_forward(lib).items()):
+        say("build", f"SASS grid_sample_fwd_kernel<C={c or 'any'}, "
+            f"derivatives={grads}>: {n['ldg']} global loads ({n['ldg128']} "
+            f"of 128 bits), {n['stg']} stores ({n['stg128']} of 128 bits), "
+            f"{n['calls']} calls")
+        check(n["calls"] == 0, f"the forward kernel <{c}, {grads}> calls a "
+              f"routine (a division?)")
+        check(c not in (1, 3, 4) or (n["ldg128"] and n["stg128"]),
+              f"the forward kernel <{c}, {grads}> has no 128-bit global "
+              f"loads or stores")
 
     say("build", f"phase took {time.monotonic() - t:.2f} s")
 
+    cfg = med_config()
     t = time.monotonic()
-    rows = phase_kernels(torch, gs)
-    rows.update(phase_bwd_kernels(torch, gs))
-    grads_rows = phase_grads_kernel(torch, gs)
-    tail_row = phase_tail_kernel(torch, dt)
+    rows, grads_rows, tail_row = phase_all_kernels(torch, cfg)
     tail_row["ptxas"] = ptxas.get("decoder_tail_kernel")
     say("kernels", f"decoder_tail_kernel, -Xptxas -v: {tail_row['ptxas']}")
     say("kernels", f"phase took {time.monotonic() - t:.2f} s")
-    cfg = Config(iterations=ITERS, num_scales=1, minibatch=B,
-                 img_resolution="med")
-    check(cfg.image_size == (H, W), f"med res is {cfg.image_size}")
     t = time.monotonic()
     launches = phase_slice(torch, gs, cfg, build_models, coupled_forward)
     say("slice", f"phase took {time.monotonic() - t:.2f} s")
@@ -1340,13 +1733,13 @@ def main() -> int:
     kernels = []
     for name, source, replaces, row in (
             ("grid_sample_fwd", fwd_src, "tcsfm/ops/warp_mxu.py:470",
-             rows[3]),
+             dict(rows[3], c4_smoke_coords=rows[4])),
             ("grid_sample_bwd_coords", bwd_src,
              "tcsfm/ops/warp_mxu_grad.py:303", rows["grid_sample_bwd_coords"]),
             ("grid_sample_bwd_img", bwd_src,
              "tcsfm/ops/warp_mxu_grad.py:294", rows["grid_sample_bwd_img"]),
             ("grid_sample_with_grads", fwd_src, "tcsfm/ops/warp_mxu.py:526",
-             grads_rows[RB]),
+             dict(grads_rows[RB], chain_windows=grads_rows[BLOCK - 2])),
             ("decoder_tail", "tcsfm_torch/ops/csrc/decoder_tail.cu",
              "experiments/decoder_tail.py:200", tail_row)):
         fwd, step, refine, tail_fwd = per_path[name]

@@ -50,18 +50,64 @@ def _inputs(shape, seed, device):
             torch.from_numpy(coords).to(device))
 
 
-@pytest.mark.parametrize("shape", [(2, 31, 45, 1), (2, 32, 64, 3),
-                                   (3, 17, 23, 4), (1, 8, 9, 7),
-                                   (24, 192, 640, 3), (24, 192, 640, 4)])
-def test_kernel_matches_plain(cuda, shape):
-    img, coords = _inputs(shape, 0, cuda)
+# the forward kernels' shapes: runs of a row cut short (W < 128, W % 128),
+# W % 4 in {1, 2, 3} (rows whose runs do not fall on 16 bytes), B = 1, C
+# without a vector path (7), and the main path's
+SAMPLER_SHAPES = [(2, 31, 45, 1), (2, 32, 64, 3), (3, 17, 23, 4),
+                  (1, 8, 9, 7), (2, 20, 257, 3), (2, 19, 258, 1),
+                  (1, 11, 259, 4), (1, 9, 387, 3), (24, 192, 640, 3),
+                  (24, 192, 640, 4)]
+
+
+def _offset(t: torch.Tensor) -> torch.Tensor:
+    """``t``'s values in a contiguous tensor one float into its storage
+    (its data 4 bytes past a 16-byte boundary)."""
+    flat = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    out = flat[1:].view(t.shape)
+    out.copy_(t)
+    return out
+
+
+@pytest.fixture(scope="module")
+def main_path_warps():
+    """The coupled forward's (image, coords) re-warps at [24,192,640,3]
+    (``chip_smoke.main_path_warps``)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card")
+    import chip_smoke
+
+    cfg = Config(iterations=chip_smoke.ITERS, num_scales=1,
+                 minibatch=chip_smoke.B, img_resolution="med")
+    return chip_smoke.main_path_warps(torch, gs, cfg, build_models,
+                                      coupled_forward)
+
+
+def _sample_inputs(case, shape, seed, warps, device):
+    if case == "main_path":
+        return warps[0]
+    img, coords = _inputs(shape, seed, device)
+    return (img, _offset(coords)) if case == "offset" else (img, coords)
+
+
+SAMPLER_CASES = ([("random", s) for s in SAMPLER_SHAPES]
+                 + [("offset", (2, 20, 257, 3)), ("offset", (2, 8, 256, 4)),
+                    ("main_path", (24, 192, 640, 3))])
+
+
+@pytest.mark.parametrize("case,shape", SAMPLER_CASES)
+def test_kernel_matches_plain(cuda, case, shape, request):
+    warps = (request.getfixturevalue("main_path_warps")
+             if case == "main_path" else None)
+    img, coords = _sample_inputs(case, shape, 0, warps, cuda)
     before = gs.LAUNCHES
     out = gs.grid_sample(img, coords)
     torch.cuda.synchronize()
     assert gs.LAUNCHES == before + 1
     ref = gs.grid_sample_plain(img, coords)
     assert out.shape == img.shape
-    assert (out - ref).abs().max().item() <= 1e-5
+    err = (out - ref).abs().max().item()
+    print(f"grid_sample {case} {tuple(img.shape)}: max|kernel-plain| {err}")
+    assert err <= 1e-5
 
 
 @pytest.mark.parametrize("grad_ch", [(), (3,), (0, 1, 2, 3)])
@@ -185,20 +231,28 @@ def test_coupled_forward_on_card(cuda):
         assert (a - b).abs().max().item() <= 1e-5
 
 
-@pytest.mark.parametrize("shape", [(2, 31, 45, 1), (2, 32, 64, 3),
-                                   (3, 17, 23, 4), (1, 8, 9, 7),
-                                   (4, 192, 640, 3)])
-def test_with_grads_kernel_matches_plain(cuda, shape):
-    img, coords = _inputs(shape, 7, cuda)
+@pytest.mark.parametrize("case,shape", [
+    *(c for c in SAMPLER_CASES if c[1] != (24, 192, 640, 4)),
+    ("random", (4, 192, 640, 3))])
+def test_with_grads_kernel_matches_plain(cuda, case, shape, request):
+    warps = (request.getfixturevalue("main_path_warps")
+             if case == "main_path" else None)
+    img, coords = _sample_inputs(case, shape, 7, warps, cuda)
     before = gs.LAUNCHES_FWD_GRADS
     got = gs.grid_sample_with_grads(img, coords)
     torch.cuda.synchronize()
     assert gs.LAUNCHES_FWD_GRADS == before + 1
     ref = gs.grid_sample_with_grads_plain(img, coords)
-    assert (got[0] - ref[0]).abs().max().item() <= 1e-5
-    for a, r in zip(got[1:], ref[1:]):
+    errs = [(got[0] - ref[0]).abs().max().item()] + [
+        (a - r).abs().max().item() / r.abs().max().item()
+        for a, r in zip(got[1:], ref[1:])]
+    print(f"grid_sample_with_grads {case} {tuple(img.shape)}: "
+          f"max|kernel-plain| out {errs[0]}, gx, gy {errs[1:]} of their "
+          f"magnitude")
+    assert errs[0] <= 1e-5
+    for a, e in zip(got[1:], errs[1:]):
         assert a.shape == img.shape
-        assert (a - r).abs().max().item() <= 1e-6 * r.abs().max().item()
+        assert e <= 1e-6
 
 
 def test_forward_mode_on_the_card(cuda):

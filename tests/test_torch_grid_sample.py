@@ -7,9 +7,18 @@
   interpret mode, as tests/test_warp_mxu.py runs it, on coords inside its
   vertical band: atol 1e-5 (its hi/lo bf16 split is within ~4e-6 of f32).
 * The wrapper ``grid_sample``: CPU dispatch, input checks, its gradient.
+* The forward kernel's walk (``csrc/grid_sample.cu``, its constants read
+  from the source) emulated in PyTorch: tiles, each warp's run of a row,
+  the lanes' pixels, the vector path's 16-byte loads and stores through the
+  warp's buffer and the scalar path (a row's ragged end, a misaligned run,
+  other C), every output written once and bit-equal (``torch.equal``) to
+  the plain versions, value and value+Jacobian.
 
 The kernel itself runs only on the card: tests/test_torch_cuda.py.
 """
+
+import math
+import re
 
 import jax
 import jax.numpy as jnp
@@ -179,3 +188,136 @@ def test_launches_pass_the_tensors_card(monkeypatch):
                              "tcsfm_grid_sample_fwd_grads"]
     for name, args in calls.items():
         assert args[-2:] == (3, 1234), (name, args[-2:])
+
+
+def _kernel_constants() -> dict:
+    """The walk's integer constants in csrc/grid_sample.cu, by name."""
+    src = (gs._build.CSRC / "grid_sample.cu").read_text()
+    return {k: int(v) for k, v in
+            re.findall(r"constexpr int (k\w+) = (\d+);", src)}
+
+
+def _floats4(f4: torch.Tensor) -> torch.Tensor:
+    """The float indices of the float4s ``f4``, lane by lane."""
+    return (4 * f4[:, None] + torch.arange(4)).reshape(-1)
+
+
+def _lane_float4s(n4: int) -> list:
+    """The float4s of ``n4`` that the lanes move in one instruction after
+    another: lane l the (32 j + l)-th."""
+    lanes = torch.arange(32)
+    return [i[i < n4] for i in (32 * j + lanes for j in range(-(-n4 // 32)))]
+
+
+def _emulate_kernel(img, coords, grads, coords_offset=0):
+    """The forward kernel's walk in plain PyTorch. A block of kWarps warps
+    takes a tile of kWarps rows by kRun pixels, a warp the run of kRun
+    pixels of one row; in a run, lane l samples pixels l + 32 k. A full
+    run whose coords (after ``coords_offset`` floats of storage) and planes
+    fall on 16 bytes, at C in {1, 3, 4}, takes the vector path: lane l
+    loads the run's float4s of coords 32 j + l, pixel 32 k + l's coords
+    come by shuffle from the lane holding float4 16 k + l / 2, and each
+    plane goes out through the warp's buffer, the lanes taking its float4s
+    in turn (C = 4: a float4 a pixel, straight); any other run takes the
+    scalar path. Each lane's pixel is sampled at the coords it got with
+    the plain versions' arithmetic. Returns the planes (out, or out, gx,
+    gy) and the number of runs on the vector path; asserts that every
+    output float is written once."""
+    k = _kernel_constants()
+    warps, run = k["kWarps"], 32 * k["kLanePixels"]
+    b, h, w, c = img.shape
+    lanes = torch.arange(32)
+    slots = [32 * j + lanes for j in range(k["kLanePixels"])]
+    cflat = torch.cat([torch.zeros(coords_offset), coords.reshape(-1)])
+    read = torch.full((b * h * w, 2), float("nan"))
+    runs = []
+    for bz, by, bx, warp in np.ndindex(b, math.ceil(h / warps),
+                                       math.ceil(w / run), warps):
+        row, x0 = by * warps + warp, bx * run
+        if row >= h or x0 >= w:
+            continue
+        n = min(run, w - x0)
+        px0 = (bz * h + row) * w + x0
+        c0 = coords_offset + 2 * px0        # the run's coords in cflat
+        vec = (c in (1, 3, 4) and n == run and c0 % 4 == 0
+               and px0 * c % 4 == 0)
+        if vec:
+            # c4[j][l]: the float4 that lane l loads j-th
+            c4 = [cflat[c0 + _floats4(32 * j + lanes)].view(32, 4)
+                  for j in range(k["kLanePixels"] // 2)]
+            for j, p in enumerate(slots):
+                src = (16 * j + lanes // 2) % 32
+                q = c4[j // 2][src]
+                read[px0 + p] = torch.where((lanes % 2 == 1)[:, None],
+                                            q[:, 2:], q[:, :2])
+        else:
+            for p in slots:
+                p = p[p < n]
+                read[px0 + p, 0] = cflat[c0 + 2 * p]
+                read[px0 + p, 1] = cflat[c0 + 2 * p + 1]
+        runs.append((px0, n, vec))
+    read = read.reshape(b, h, w, 2)
+    planes = (gs.grid_sample_with_grads_plain(img, read) if grads
+              else (gs.grid_sample_plain(img, read),))
+    chans = torch.arange(c)
+    outs = []
+    for plane in planes:
+        vals = plane.reshape(-1, c)         # by the lane slot's pixel
+        out = torch.full((b * h * w * c,), float("nan"))
+        writes = torch.zeros(b * h * w * c, dtype=torch.int64)
+        for px0, n, vec in runs:
+            if vec and c == 4:
+                for p in slots:
+                    f = _floats4(px0 + p)
+                    out[f] = vals[px0 + p].reshape(-1)
+                    writes[f] += 1
+            elif vec:
+                buf = torch.full((run * c,), float("nan"))
+                for p in slots:
+                    buf[(p[:, None] * c + chans).reshape(-1)] = vals[
+                        px0 + p].reshape(-1)
+                for f4 in _lane_float4s(run * c // 4):
+                    f = _floats4(px0 * c // 4 + f4)
+                    out[f] = buf[_floats4(f4)]
+                    writes[f] += 1
+            else:
+                for p in slots:
+                    p = p[p < n]
+                    f = ((px0 + p)[:, None] * c + chans).reshape(-1)
+                    out[f] = vals[px0 + p].reshape(-1)
+                    writes[f] += 1
+        assert bool((writes == 1).all())
+        outs.append(out.reshape(b, h, w, c))
+    return outs, sum(vec for *_, vec in runs)
+
+
+def _walk_coords(h, w, seed):
+    """Near-identity coords with 5% pushed to 2.0 and 5% far outside."""
+    rng = np.random.RandomState(seed)
+    c = _identity_coords(2, h, w) + rng.uniform(-3, 3, (2, h, w, 2)) * [
+        2.0 / w, 2.0 / h]
+    u = rng.rand(2, h, w)
+    c[u < 0.05] = 2.0
+    c[(u >= 0.05) & (u < 0.1)] *= 40.0
+    return c.astype(np.float32)
+
+
+@pytest.mark.parametrize("coords_offset", [0, 1])
+@pytest.mark.parametrize("c", [1, 3, 4, 7])
+@pytest.mark.parametrize("w", [61, 62, 63, 64, 253, 254, 255, 256])
+def test_kernel_walk_is_bit_equal_to_plain(w, c, coords_offset):
+    """H = 11 (not a multiple of a tile's rows), B = 2; runs of a row that
+    end ragged, rows whose runs fall on 16 bytes or not (odd W, a coords
+    tensor one float into its storage), C with and without a vector
+    path."""
+    h = 11
+    img = torch.from_numpy(_img(9 + c, c, 2, h, w))
+    coords = torch.from_numpy(_walk_coords(h, w, seed=w + c))
+    (out,), vec_runs = _emulate_kernel(img, coords, False, coords_offset)
+    assert torch.equal(out, gs.grid_sample_plain(img, coords))
+    planes, _ = _emulate_kernel(img, coords, True, coords_offset)
+    for ours, ref in zip(planes, gs.grid_sample_with_grads_plain(img, coords)):
+        assert torch.equal(ours, ref)
+    run = 32 * _kernel_constants()["kLanePixels"]
+    assert (vec_runs > 0) == (w >= run and c in (1, 3, 4)
+                              and coords_offset % 2 == 0)

@@ -11,6 +11,10 @@
   hi/lo bf16; measured 6.7e-6).
 * the integer-y convention: the port follows autodiff there, where the
   Pallas tent derivative gives 0.
+* at smooth main-path-like coords (a small depth and pose through the
+  port's ``inverse_warp2``, 64x96): ``grid_sample_plain`` vs the XLA
+  sampler (atol 1e-6) and ``grid_sample_with_grads_plain`` vs its
+  ``jax.jvp`` (1e-5 of the largest magnitude).
 * ``_GridSample`` and ``grid_sample_fwd_diff``'s Function with their
   launches replaced by the plain twins: ``torch.func.jvp``,
   ``torch.autograd.forward_ad``, ``torch.func.vmap`` and ``torch.func.grad``
@@ -31,6 +35,7 @@ import torch.autograd.forward_ad as fwAD
 
 from tcsfm.geom.warp import grid_sample as jax_grid_sample
 from tcsfm.ops.warp_mxu import grid_sample_mxu_with_grads
+from tcsfm_torch.geom.warp import inverse_warp2
 from tcsfm_torch.ops import grid_sample as gs
 
 from test_torch_grid_sample_bwd import (B, H, W, _close_rel, _coords,
@@ -108,6 +113,50 @@ def test_integer_y_follows_autodiff():
     pallas_gy = np.asarray(grid_sample_mxu_with_grads(
         jnp.asarray(img), jnp.asarray(coords), band=16, interpret=True)[2])
     assert np.abs(pallas_gy).max() < 1e-3 * np.abs(gy).max()
+
+
+def _warp_coords(h=64, w=96, b=2, seed=11):
+    """The coords that the port's ``inverse_warp2`` hands its sampler for a
+    smooth depth (2-6 m, a tilted plane with a bump) and small poses, with
+    KITTI-like intrinsics; and the image it samples."""
+    rng = np.random.RandomState(seed)
+    ys, xs = np.meshgrid(np.linspace(0, 1, h), np.linspace(0, 1, w),
+                         indexing="ij")
+    depth = 2.0 + 3.0 * ys + 0.5 * np.sin(6 * xs) * np.cos(4 * ys)
+    depth = np.broadcast_to(depth[None, ..., None], (b, h, w, 1))
+    pose = np.concatenate([rng.uniform(-0.05, 0.05, (b, 3)),
+                           rng.uniform(-0.01, 0.01, (b, 3))], -1)
+    K = np.broadcast_to(np.array([[0.6 * w, 0, w / 2], [0, 0.6 * w, h / 2.5],
+                                  [0, 0, 1]]), (b, 3, 3))
+    img = rng.rand(b, h, w, C).astype(np.float32)
+    seen = []
+
+    def recording(im, coords):
+        seen.append(coords)
+        return gs.grid_sample_plain(im, coords)
+
+    inverse_warp2(*(torch.from_numpy(np.ascontiguousarray(a, np.float32))
+                    for a in (img, depth, depth, pose, K)),
+                  sample_depth=False, sampler=recording)
+    return img, seen[0].numpy()
+
+
+def test_plain_at_main_path_like_coords_matches_jax():
+    img, coords = _warp_coords()
+    inside = (np.abs(coords) <= 1.0).all(-1)
+    assert 0.5 < inside.mean() < 1.0          # mostly in view, some pushed
+    out, gx, gy = _plain_with_grads(img, coords)
+    assert np.array_equal(out, gs.grid_sample_plain(
+        torch.from_numpy(img), torch.from_numpy(coords)).numpy())
+    ref = jax_grid_sample(jnp.asarray(img), jnp.asarray(coords))
+    np.testing.assert_allclose(out, np.asarray(ref), atol=1e-6, rtol=0)
+    b, h, w, _ = coords.shape
+    for axis, ours in ((0, gx), (1, gy)):
+        t = np.zeros((b, h, w, 2), np.float32)
+        t[..., axis] = 1.0
+        _, tan = jax.jvp(lambda c: jax_grid_sample(jnp.asarray(img), c),
+                         (jnp.asarray(coords),), (jnp.asarray(t),))
+        _close_rel(ours, np.asarray(tan), 1e-5)
 
 
 def test_with_grads_wrapper_runs_plain_on_cpu():
