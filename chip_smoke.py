@@ -15,9 +15,12 @@ Phases, each printing its elapsed seconds:
      loop's time per call (what a Python caller pays); the plain
      version's; and the kernel's memory/compute bound. The samplers are
      timed at the main path's own coordinates (the coupled forward's three
-     re-warps, the refiners' jvps) and at ``smoke_coords``. The build
-     phase checks the forward sampler's SASS (128-bit loads and stores,
-     no calls);
+     re-warps, the refiners' jvps, the training step's backward launches)
+     and at ``smoke_coords``; the backward kernels also at coords spread
+     over the whole image, with how far the d_img launches' taps spread.
+     The build phase prints each kernel's registers and spills and checks
+     the samplers' SASS (128-bit loads and stores, no calls; the d_img
+     kernel's global reductions);
   3. the main path: the coupled depth-pose forward at med res 192x640,
      B=6, S=2, 4 iterations, f32, full-width networks with seeded random
      weights; kernel launch counts, the same forward with the plain
@@ -45,8 +48,8 @@ Phases, each printing its elapsed seconds:
      routes in turns, and peak memory.
 
 Phase 2 also holds the sampler's two backward kernels (d_coords only,
-and d_coords + d_img), its value+Jacobian kernel and the decoder tail
-kernel against their plain versions.
+and d_coords + d_img; d_coords bit for bit), its value+Jacobian kernel and
+the decoder tail kernel against their plain versions.
 Prints the kernels' JSON line, then, as the last line,
 ``{"ok": true, "device": {...}}``. Any failed check raises and exits
 non-zero; a hang past the watchdog dumps a traceback and exits non-zero.
@@ -83,8 +86,16 @@ CLOCK_FIELDS = "clocks.sm,clocks.mem,power.draw,temperature.gpu"
 # timing at their own coordinates: one LM iteration's (7 jvps for each of
 # window_ba's two residual families)
 JVP_SAMPLES = 14
-BWD_COORDS_TOL = 1e-5         # of d_coords' largest magnitude: same order
 BWD_IMG_TOL = 1e-5            # d_img: atomics add in a changing order
+# d_coords is bit-equal to its plain version (the same f32 operations in
+# the same order); its sha256 at smoke_coords
+BWD_SMOKE_SHA256 = {"grid_sample_bwd_coords": "6a433ed3de2c35a6",
+                    "grid_sample_bwd_img": "163ccab1777eef91"}
+# the spread of the d_img launches' taps: for tiles of a block (8 rows by
+# 64 pixels) and of a warp (1 by 64), the shares whose taps' box of d_img
+# (rows by 16-byte-aligned float columns) fits these sizes (floats)
+BWD_TAP_BOXES = {(8, 64): (1024, 2048, 4096, 8192),
+                 (1, 64): (256, 512, 1024, 2048)}
 STEP_LOSS_TOL = 1e-6          # kernel- vs plain-sampler step: same forward
 STEP_GRAD_TOL = 1e-4          # relative L2 per gradient tensor
 # the plain-sampler step's own spread s (relative L2, per tensor): how far
@@ -163,6 +174,7 @@ TAIL_TILE_MACS = 16 * 36 * 9 * 32 * 32 + 512 * 9 * 32 * 8 + 12 * 32 * 72
 # products for each f32 one (3xTF32)
 TF32_FLOPS_PER_S = 495e12     # H100 SXM dense TF32 tensor cores
 TAIL_TC_MACS = 9 * 32 * 32 + 9 * 32 * 8
+
 
 T0 = time.monotonic()
 
@@ -393,14 +405,18 @@ def ptxas_by_kernel(log: str) -> dict:
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '([^']+)'", line)
         if m:
-            name = m.group(1)
+            name = mangled = m.group(1)
             # the mangled name's length-prefixed parts: the one naming a
-            # kernel
+            # kernel, with its template arguments (integers, bools)
             pos = 0
             while (part := re.compile(r"(\d+)").search(name, pos)):
                 end = part.end() + int(part.group(1))
                 if "kernel" in name[part.end():end]:
                     name = name[part.end():end]
+                    args = re.match(r"I((?:L\w\d+E)+)E", mangled[end:])
+                    if args:
+                        name += "<" + ", ".join(re.findall(
+                            r"L\w(\d+)E", args.group(1))) + ">"
                     break
                 pos = end
             while name in found:    # another instantiation of a template
@@ -412,11 +428,12 @@ def ptxas_by_kernel(log: str) -> dict:
     return {k: "; ".join(v) for k, v in found.items()}
 
 
-def sass_of_forward(lib) -> dict:
-    """``cuobjdump -sass`` of the library's forward sampler kernels: for
-    each instance, by its template arguments (C, with the derivatives),
-    the counts of its global loads and stores, of those that move 128
-    bits, and of its calls (a division routine is a call)."""
+def sass_of(lib, kernel: str) -> dict:
+    """``cuobjdump -sass`` of the library's instances of ``kernel`` (the
+    sampler kernels are templates on (C, a bool)): for each instance, by
+    its template arguments (C, the bool), the counts of its global loads
+    and stores, of those that move 128 bits, of its calls (a division
+    routine is a call) and of its global reductions."""
     import re
     from pathlib import Path
 
@@ -427,14 +444,16 @@ def sass_of_forward(lib) -> dict:
         capture_output=True, text=True, timeout=120, check=True).stdout
     found = {}
     for part in text.split("Function : ")[1:]:
-        m = re.search(r"grid_sample_fwd_kernelILi(\d+)ELb([01])E",
-                      part.split()[0])
+        m = re.search(rf"{kernel}ILi(\d+)ELb([01])E", part.split()[0])
         if m:
             found[int(m.group(1)), m.group(2) == "1"] = {
-                k: len(re.findall(rf"\b{op}\b", part)) for k, op in (
-                    ("ldg", r"LDG(\.\w+)*"), ("ldg128", r"LDG(\.\w+)*\.128"),
-                    ("stg", r"STG(\.\w+)*"), ("stg128", r"STG(\.\w+)*\.128"),
-                    ("calls", r"CALL(\.\w+)*"))}
+                k: len(re.findall(rf"\b{op}", part)) for k, op in (
+                    ("ldg", r"LDG(\.\w+)*\b"),
+                    ("ldg128", r"LDG(\.\w+)*\.128\b"),
+                    ("stg", r"STG(\.\w+)*\b"),
+                    ("stg128", r"STG(\.\w+)*\.128\b"),
+                    ("calls", r"CALL(\.\w+)*\b"),
+                    ("red", r"REDG?(\.\w+)*\b"))}
     return found
 
 
@@ -597,70 +616,267 @@ def phase_kernels(torch, gs, warps, flush):
     return rows
 
 
-def phase_bwd_kernels(torch, gs, flush):
-    """The backward kernels vs grid_sample_bwd_plain at the training
-    step's shapes: d_coords only at [24,192,640,3] (the solver's warps),
-    d_img for channel 3 at [24,192,640,4] (the loss warp); their times
-    beside aten.grid_sampler_2d_backward's."""
+def train_step_bwd_samples(torch, gs, cfg, create_train_state, train_step):
+    """The (img, coords, g, grad_ch) of every backward kernel launch of one
+    training step in phase "train"'s setting (``train_setting``: med res,
+    B=6, S=2, 4 iterations, trained-like conditioning, f32, TF32 off), for
+    each of STEP_GRAD_VARIANTS, recorded as detached clones through
+    ``gs.grid_sample_bwd`` (which ``_GridSampleBwd.forward`` looks up at
+    call time). Returns the defaults' ITERS - 1 d_coords-only launches (the
+    solver's pose-only re-warps, [24,192,640,3]) under "coords", and the
+    d_img launch (the loss warp, [24,192,640,4], grad_ch=(3,)) with the
+    depth terms on under "img" (its g reaches the depth channel) and under
+    the defaults under "img defaults" (the depth channel's g is 0)."""
+    import copy
+    import dataclasses
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    state, batch = train_setting(torch, cfg, create_train_state)
+    launch = gs.grid_sample_bwd
+    seen = {label: [] for label, _ in STEP_GRAD_VARIANTS}
+    current = []
+
+    def recording(img, coords, g, grad_ch=()):
+        current.append((img.detach().clone(), coords.detach().clone(),
+                        g.detach().clone(), tuple(grad_ch)))
+        return launch(img, coords, g, grad_ch)
+
+    gs.grid_sample_bwd = recording
+    try:
+        for label, extra in STEP_GRAD_VARIANTS:
+            current = seen[label]
+            st = copy.deepcopy(state)
+            st.cfg = dataclasses.replace(cfg, **extra)
+            train_step(st, batch)
+            torch.cuda.synchronize()
+            del st
+    finally:
+        gs.grid_sample_bwd = launch
+    n = 2 * S * B
+    want = sorted([((n, H, W, 3), ())] * (ITERS - 1) + [((n, H, W, 4), (3,))])
+    for label, got in seen.items():
+        shapes = sorted((tuple(s[0].shape), s[3]) for s in got)
+        check(shapes == want, f"{label}: the training step's backward "
+              f"launches {shapes}, expected {want}")
+
+    def pick(label, grad_ch):
+        return [s for s in seen[label] if s[3] == grad_ch]
+
+    samples = {"coords": pick("defaults", ()),
+               "img": pick("depth terms on", (3,)),
+               "img defaults": pick("defaults", (3,))}
+    depth_g = [s[2][..., 3].abs().max().item()
+               for s in samples["img"] + samples["img defaults"]]
+    check(depth_g[0] > 0 and depth_g[1] == 0, f"the loss warp's depth-channel "
+          f"g, depth terms on and defaults: {depth_g}")
+    return samples
+
+
+def bwd_tile_boxes(torch, coords, cg, tile):
+    """The box of d_img that the in-image taps of each tile (``tile``:
+    rows by pixels) of ``coords`` [B,H,W,2] span: its rows by its float
+    columns, widened to 16 bytes (Cg floats a pixel). Returns the floats of
+    each tile's box, 0 for a tile with no in-image tap (a pushed coordinate
+    has none)."""
+    import torch.nn.functional as F
+
+    b, h, w, _ = coords.shape
+    x = ((coords[..., 0] + 1.0) * w - 1.0) * 0.5
+    y = ((coords[..., 1] + 1.0) * h - 1.0) * 0.5
+    x0, y0 = torch.floor(x), torch.floor(y)
+    vx0, vx1 = (x0 >= 0) & (x0 <= w - 1), (x0 >= -1) & (x0 <= w - 2)
+    vy0, vy1 = (y0 >= 0) & (y0 <= h - 1), (y0 >= -1) & (y0 <= h - 2)
+    inside = (vx0 | vx1) & (vy0 | vy1)
+    big = float(1 << 30)
+    rows, run = tile
+
+    def reduce(lo, hi, on_lo, on_hi):
+        """min of the tile's first in-image tap, max of its last."""
+        first = torch.where(inside, torch.where(on_lo, lo, lo + 1), big)
+        last = torch.where(inside, torch.where(on_hi, hi + 1, hi), -big)
+        out = []
+        for t, fill, fn in ((first, big, torch.amin),
+                            (last, -big, torch.amax)):
+            t = F.pad(t, (0, -w % run, 0, -h % rows), value=fill)
+            out.append(fn(t.reshape(b, t.shape[1] // rows, rows,
+                                    t.shape[2] // run, run), dim=(2, 4)))
+        return out
+
+    c_lo, c_hi = reduce(x0, x0, vx0, vx1)
+    r_lo, r_hi = reduce(y0, y0, vy0, vy1)
+    empty = c_lo >= big
+    c_lo, c_hi = (torch.where(empty, 0.0, t).double() for t in (c_lo, c_hi))
+    r_lo, r_hi = (torch.where(empty, 0.0, t).double() for t in (r_lo, r_hi))
+    cols = (torch.ceil((c_hi + 1) * cg / 4) - torch.floor(c_lo * cg / 4)) * 4
+    return torch.where(empty, 0.0, cols * (r_hi - r_lo + 1)).reshape(-1)
+
+
+def tap_spread_text(torch, launches):
+    """How far the d_img launches' taps spread: for each tile shape of
+    BWD_TAP_BOXES, the median and largest box of d_img a tile's taps span
+    (``bwd_tile_boxes``) and the shares of tiles whose box fits each size.
+    Returns the text and the numbers."""
+    parts, spread = [], {}
+    for tile, sizes in BWD_TAP_BOXES.items():
+        floats = torch.cat([bwd_tile_boxes(torch, coords, len(grad_ch), tile)
+                            for _, coords, _, grad_ch in launches])
+        live = floats[floats > 0]
+        fits = {k: ((floats <= k) & (floats > 0)).double().mean().item()
+                for k in sizes}
+        stats = dict(tiles=floats.numel(), empty=floats.numel() - live.numel(),
+                     median=live.median().item() if live.numel() else 0.0,
+                     max=live.max().item() if live.numel() else 0.0,
+                     fits=fits)
+        spread[f"{tile[0]}x{tile[1]}"] = stats
+        parts.append(
+            f"{tile[0]}x{tile[1]} tiles: {stats['empty']} of {stats['tiles']} "
+            f"without an in-image tap, box median {stats['median']:.0f} and "
+            f"max {stats['max']:.0f} floats, fitting " + ", ".join(
+                f"{k}: {v:.1%}" for k, v in fits.items()))
+    return "the taps' d_img boxes: " + "; ".join(parts), spread
+
+
+def spread_coords(b, h, w, seed):
+    """Coords uniform in [-1.2, 1.2] (taps scattered over the whole
+    image), 5% pushed to 2.0."""
+    import numpy as np
+
+    rng = np.random.RandomState(seed)
+    c = rng.uniform(-1.2, 1.2, (b, h, w, 2))
+    c[rng.rand(b, h, w) < 0.05] = 2.0
+    return c.astype(np.float32)
+
+
+def bwd_set_row(torch, gs, name, label, launches, flush):
+    """One backward kernel on ``launches`` (each (img, coords, g, grad_ch),
+    launched in turn): d_coords bit-equal to grid_sample_bwd_plain's, d_img
+    within BWD_IMG_TOL of it, and the kernel's times (``timed``) beside
+    aten.grid_sampler_2d_backward's on the same inputs."""
+    err = img_err = lib_err = 0.0
+    lib_args = []
+    for img, coords, g, grad_ch in launches:
+        d_coords, d_img = gs.grid_sample_bwd(img, coords, g, grad_ch)
+        ref_coords, ref_img = gs.grid_sample_bwd_plain(img, coords, g,
+                                                       grad_ch)
+        err = max(err, (d_coords - ref_coords).abs().max().item())
+        if grad_ch:
+            img_err = max(img_err, (d_img - ref_img).abs().max().item())
+            live = bool((g[..., list(grad_ch)] != 0).any())
+            check((d_img.abs().max().item() > 0) == live, f"{name}, {label}: "
+                  f"d_img max {d_img.abs().max().item()}, g of its channels "
+                  f"non-zero: {live}")
+        mask = [bool(grad_ch), True]
+        args = (g.permute(0, 3, 1, 2), img.permute(0, 3, 1, 2), coords, mask)
+        lib_args.append(args)
+        lib = torch.ops.aten.grid_sampler_2d_backward(*args[:3], 0, 0, False,
+                                                      mask)
+        lib_err = max(lib_err, ((lib[1] - d_coords).abs().max()
+                                / ref_coords.abs().max()).item())
+    check(err == 0, f"{name}, {label}: d_coords max|kernel-plain| {err}, "
+          f"not bit-equal")
+    check(img_err <= BWD_IMG_TOL, f"{name}, {label}: d_img max abs err "
+          f"{img_err} > {BWD_IMG_TOL}")
+    kernel = cycling(launches, gs.grid_sample_bwd)
+    library = cycling(lib_args, lambda gg, ii, cc, m: (
+        torch.ops.aten.grid_sampler_2d_backward(gg, ii, cc, 0, 0, False, m)))
+    warm_up(torch, kernel, library)
+    row = timed(torch, kernel, library, flush)
+    img, coords, g, grad_ch = launches[0]
+    n, h, w, c = img.shape
+    # each input read once, each output written once: img, coords, g;
+    # d_coords and the d_img channels (its zero-fill not counted)
+    planes = c + 2 + c + 2 + len(grad_ch)
+    nbytes = planes * n * h * w * 4
+    row.update(bound(nbytes, n * h * w * (20 + 14 * c + 8 * len(grad_ch))),
+               max_abs_err=max(err, img_err), coords=label,
+               d_coords_max_abs_err=err, d_img_max_abs_err=img_err,
+               max_rel_err_library=lib_err, bytes=nbytes,
+               plain_ms=time_ms(lambda: gs.grid_sample_bwd_plain(
+                   img, coords, g, grad_ch), iters=10),
+               in_view=statistics.mean(
+                   (co.abs() <= 1).all(-1).float().mean().item()
+                   for _, co, _, _ in launches))
+    return row
+
+
+def phase_bwd_kernels(torch, gs, samples, flush):
+    """The backward kernels vs grid_sample_bwd_plain and timed beside
+    aten.grid_sampler_2d_backward: d_coords only at [24,192,640,3] (the
+    solver's warps), d_img for channel 3 at [24,192,640,4] (the loss
+    warp); each at the training step's own inputs (``samples``, from
+    ``train_step_bwd_samples``: the solver's three launches in turn; the
+    loss warp's with the depth terms on, and under the defaults), at
+    ``smoke_coords`` (random image and g; d_coords' sha256 as recorded in
+    BWD_SMOKE_SHA256) and at ``spread_coords``. For the d_img kernel,
+    how far its taps spread (``tap_spread_text``). Returns the rows by kernel
+    name, the training step's row holding the others by label."""
     import numpy as np
 
     n = 2 * S * B
-    coords = torch.from_numpy(smoke_coords(n, H, W, seed=1)).cuda()
+    smoke = torch.from_numpy(smoke_coords(n, H, W, seed=1)).cuda()
     rows = {}
-    for name, c, grad_ch in (("grid_sample_bwd_coords", 3, ()),
-                             ("grid_sample_bwd_img", 4, (3,))):
+    for name, c, grad_ch, step_sets in (
+            ("grid_sample_bwd_coords", 3, (), (
+                ("training step", samples["coords"]),)),
+            ("grid_sample_bwd_img", 4, (3,), (
+                ("training step, depth terms on", samples["img"]),
+                ("training step, defaults", samples["img defaults"])))):
         rng = np.random.RandomState(10 + c)
         img = torch.from_numpy(rng.rand(n, H, W, c).astype(np.float32)).cuda()
         g = torch.from_numpy(rng.randn(n, H, W, c).astype(np.float32)).cuda()
-        d_coords, d_img = gs.grid_sample_bwd(img, coords, g, grad_ch)
-        ref_coords, ref_img = gs.grid_sample_bwd_plain(img, coords, g, grad_ch)
-        torch.cuda.synchronize()
-        scale = ref_coords.abs().max().item()
-        err = (d_coords - ref_coords).abs().max().item()
-        check(err <= BWD_COORDS_TOL * scale, f"{name}: d_coords max abs err "
-              f"{err} > {BWD_COORDS_TOL} x {scale}")
-        img_err = 0.0
-        if grad_ch:
-            img_err = (d_img - ref_img).abs().max().item()
-            check(img_err <= BWD_IMG_TOL, f"{name}: d_img max abs err "
-                  f"{img_err} > {BWD_IMG_TOL}")
-            check(d_img.abs().max().item() > 0, f"{name}: d_img is all 0")
-        mask = [bool(grad_ch), True]
-        lib_img, lib_g = img.permute(0, 3, 1, 2), g.permute(0, 3, 1, 2)
-
-        def library():
-            return torch.ops.aten.grid_sampler_2d_backward(
-                lib_g, lib_img, coords, 0, 0, False, mask)
-
-        def kernel():
-            return gs.grid_sample_bwd(img, coords, g, grad_ch)
-
-        lib_err = (library()[1] - d_coords).abs().max().item() / scale
-        warm_up(torch, kernel, library)
-        row = timed(torch, kernel, library, flush)
-        # each input read once, each output written once: img, coords, g;
-        # d_coords and the d_img channels (its zero-fill not counted)
-        planes = c + 2 + c + 2 + len(grad_ch)
-        nbytes = planes * n * H * W * 4
-        row.update(bound(nbytes, n * H * W * (20 + 14 * c + 8 * len(grad_ch))),
-                   max_abs_err=max(err, img_err), coords="smoke_coords",
-                   plain_ms=time_ms(lambda: gs.grid_sample_bwd_plain(
-                       img, coords, g, grad_ch), iters=10),
-                   d_coords_sha256=hashlib.sha256(
-                       d_coords.cpu().numpy().tobytes()).hexdigest()[:16])
-        rows[name] = row
-        say("kernels", f"{name} [{n},{H},{W},{c}] grad_ch={grad_ch}: "
-            f"max|kernel-plain| d_coords {err:.3e} (limit {BWD_COORDS_TOL} "
-            f"x {scale:.3e}), d_img {img_err:.3e} (limit {BWD_IMG_TOL}); "
-            f"max|kernel-aten| d_coords {lib_err:.3e} of its magnitude; "
-            f"d_coords sha256 {row['d_coords_sha256']}; kernel (d_img "
-            f"zero-fill included) "
-            + times_text(row, library="aten.grid_sampler_2d_backward")
-            + f"; plain {us(row['plain_ms'])} us; "
-            f"bound {us(row['bound_ms'])} us ({row['bound_by']}: "
-            f"{nbytes / 1e6:.2f} MB), kernel at "
-            f"{row['bound_ms'] / row['ms']:.1%} of bound")
+        spread = torch.from_numpy(spread_coords(n, H, W, seed=30 + c)).cuda()
+        sets = (*step_sets, ("smoke_coords", [(img, smoke, g, grad_ch)]),
+                ("spread_coords", [(img, spread, g, grad_ch)]))
+        for label, launches in sets:
+            row = bwd_set_row(torch, gs, name, label, launches, flush)
+            paths = ""
+            if grad_ch:
+                paths, row["tap_boxes"] = tap_spread_text(torch, launches)
+                paths = f"; {paths}"
+            if label == "smoke_coords":
+                d_coords, _ = gs.grid_sample_bwd(img, smoke, g, grad_ch)
+                row["d_coords_sha256"] = hashlib.sha256(
+                    d_coords.cpu().numpy().tobytes()).hexdigest()[:16]
+                check(row["d_coords_sha256"] == BWD_SMOKE_SHA256[name],
+                      f"{name}: d_coords sha256 {row['d_coords_sha256']} at "
+                      f"smoke_coords, recorded {BWD_SMOKE_SHA256[name]}")
+                paths += f"; d_coords sha256 {row['d_coords_sha256']}"
+            shape = tuple(launches[0][0].shape)
+            turns = (f" ({len(launches)} launches in turn)"
+                     if len(launches) > 1 else "")
+            say("kernels", f"{name} {list(shape)} grad_ch={grad_ch}, {label}"
+                f"{turns}, {row['in_view']:.1%} of the pixels in view: "
+                f"max|kernel-plain| d_coords {row['d_coords_max_abs_err']:.3e}"
+                f" (bit-equal required), d_img "
+                f"{row['d_img_max_abs_err']:.3e} (limit {BWD_IMG_TOL}); "
+                f"max|kernel-aten| d_coords {row['max_rel_err_library']:.3e} "
+                f"of its magnitude{paths}; kernel (d_img zero-fill "
+                f"included) " + times_text(
+                    row, library="aten.grid_sampler_2d_backward")
+                + f"; plain {us(row['plain_ms'])} us; bound "
+                f"{us(row['bound_ms'])} us ({row['bound_by']}: "
+                f"{row['bytes'] / 1e6:.2f} MB), kernel at "
+                f"{row['bound_ms'] / row['ms']:.1%} of bound")
+            if label.startswith("training step") and name not in rows:
+                rows[name] = row
+            else:
+                rows[name][label.replace(" ", "_").replace(",", "")] = row
     return rows
+
+
+def phase_bwd_only(torch):
+    """Phase "kernels"' backward kernels alone (``phase_bwd_kernels``), on
+    whatever ``tcsfm_torch`` is imported: how a parent tree's backward
+    kernels are timed in the same call (README): ``python3 -c "import
+    torch, chip_smoke as c; c.phase_bwd_only(torch)"``."""
+    from tcsfm_torch.ops import grid_sample as gs
+    from tcsfm_torch.train.trainer import create_train_state, train_step
+
+    samples = train_step_bwd_samples(torch, gs, med_config(),
+                                     create_train_state, train_step)
+    flush = torch.empty(FLUSH_BYTES // 4, device="cuda")
+    return phase_bwd_kernels(torch, gs, samples, flush)
 
 
 def phase_grads_kernel(torch, gs, jvp_samples, flush):
@@ -1144,15 +1360,19 @@ def phase_train(torch, gs, cfg, create_train_state, train_step,
                 for k, v in m.state_dict().items()}
 
     init = {k: v.detach().clone() for k, v in tensors().items()}
-    times = []
+    times, timeline = [], []
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in "se")
     torch.cuda.reset_peak_memory_stats()
     for i in range(TRAIN_WARMUP + TRAIN_TIMED):
         zero_counts(gs)
         t = time.perf_counter()
+        start.record()
         losses = train_step(state, batch)
+        end.record()
         torch.cuda.synchronize()
         if i >= TRAIN_WARMUP:
             times.append(time.perf_counter() - t)
+            timeline.append(start.elapsed_time(end))
         counts = read_counts(gs)
         check(counts == (ITERS, ITERS - 1, 1), f"step {i}: launches (fwd, "
               f"bwd_coords, bwd_img) {counts}, expected "
@@ -1169,7 +1389,10 @@ def phase_train(torch, gs, cfg, create_train_state, train_step,
     med = statistics.median(times)
     say("train", f"train step {H}x{W} B={B} S={S} iters={ITERS} f32: median "
         f"{med * 1e3:.3f} ms over {len(times)} (min {min(times) * 1e3:.3f}, "
-        f"max {max(times) * 1e3:.3f}) -> {B / med:.2f} frames/s; peak memory "
+        f"max {max(times) * 1e3:.3f}) -> {B / med:.2f} frames/s; on the "
+        f"card's timeline (CUDA events around the step) median "
+        f"{statistics.median(timeline):.3f} ms (min {min(timeline):.3f}, max "
+        f"{max(timeline):.3f}); peak memory "
         f"{torch.cuda.max_memory_allocated() / 2**20:.1f} MiB")
 
     grads = grads_of(state)
@@ -1621,22 +1844,25 @@ def med_config():
 def phase_all_kernels(torch, cfg):
     """Phase "kernels": every kernel against its plain version on the card
     and timed, the samplers at the main path's own coordinates (the
-    coupled forward's re-warps, the refiners' jvps) and at
-    ``smoke_coords``. Returns the forward rows by C (and the backward rows
-    by name), the value+Jacobian rows by batch, and the tail's row. Runs on
-    whatever ``tcsfm_torch`` is imported, so a parent tree's kernels are
-    timed the same way from its own checkout (README):
+    coupled forward's re-warps, the refiners' jvps, the training step's
+    backward launches) and at ``smoke_coords``. Returns the forward rows by
+    C (and the backward rows by name), the value+Jacobian rows by batch,
+    and the tail's row. Runs on whatever ``tcsfm_torch`` is imported, so a
+    parent tree's kernels are timed the same way from its own checkout
+    (README):
     ``python3 -c "import torch, chip_smoke as c;
     c.phase_all_kernels(torch, c.med_config())"``."""
     from tcsfm_torch.infer import build_models, coupled_forward
     from tcsfm_torch.ops import decoder_tail as dt
     from tcsfm_torch.ops import grid_sample as gs
+    from tcsfm_torch.train.trainer import create_train_state, train_step
 
     warps = main_path_warps(torch, gs, cfg, build_models, coupled_forward)
     jvp_samples = refiner_jvp_samples(torch, gs, build_models)
     flush = torch.empty(FLUSH_BYTES // 4, device="cuda")
     rows = phase_kernels(torch, gs, warps, flush)
-    rows.update(phase_bwd_kernels(torch, gs, flush))
+    rows.update(phase_bwd_kernels(torch, gs, train_step_bwd_samples(
+        torch, gs, cfg, create_train_state, train_step), flush))
     grads_rows = phase_grads_kernel(torch, gs, jvp_samples, flush)
     tail_row = phase_tail_kernel(torch, dt, flush)
     return rows, grads_rows, tail_row
@@ -1673,7 +1899,8 @@ def main() -> int:
     _build.load()
     say("build", f"{lib.relative_to(_build.BUILD_ROOT.parents[1])}, nvcc "
         f"{_build.build_seconds:.2f} s")
-    for (c, grads), n in sorted(sass_of_forward(lib).items()):
+    for (c, grads), n in sorted(sass_of(lib, "grid_sample_fwd_kernel")
+                                .items()):
         say("build", f"SASS grid_sample_fwd_kernel<C={c or 'any'}, "
             f"derivatives={grads}>: {n['ldg']} global loads ({n['ldg128']} "
             f"of 128 bits), {n['stg']} stores ({n['stg128']} of 128 bits), "
@@ -1683,6 +1910,19 @@ def main() -> int:
         check(c not in (1, 3, 4) or (n["ldg128"] and n["stg128"]),
               f"the forward kernel <{c}, {grads}> has no 128-bit global "
               f"loads or stores")
+    for (c, d_img), n in sorted(sass_of(lib, "grid_sample_bwd_kernel")
+                                .items()):
+        say("build", f"SASS grid_sample_bwd_kernel<C={c or 'any'}, "
+            f"d_img={d_img}>: {n['ldg']} global loads ({n['ldg128']} of 128 "
+            f"bits), {n['stg']} stores ({n['stg128']} of 128 bits), "
+            f"{n['calls']} calls, {n['red']} global reductions")
+        check(n["calls"] == 0, f"the backward kernel <{c}, {d_img}> calls a "
+              f"routine (a division?)")
+        check(c not in (1, 3, 4) or (n["ldg128"] and n["stg128"]),
+              f"the backward kernel <{c}, {d_img}> has no 128-bit global "
+              f"loads or stores")
+        check(not d_img or n["red"], f"the backward kernel <{c}, {d_img}> "
+              f"has no global reduction")
 
     say("build", f"phase took {time.monotonic() - t:.2f} s")
 

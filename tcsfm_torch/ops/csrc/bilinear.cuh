@@ -4,30 +4,24 @@
 // f32 operations and order of the plain PyTorch versions in
 // ops/grid_sample.py. __fmul_rn/__fadd_rn keep the compiler from
 // contracting them into FMAs, so kernel and plain version agree to the
-// last bit.
+// last bit. Offsets are 32-bit: each kernel checks at its launch that an
+// image's offsets (H*W*C) fit in 31 bits.
 
 #pragma once
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-// Index: the type of the taps' pixel indices, int64_t for the backward
-// kernels (bilinear_taps), int for the forward kernel (bilinear_taps32),
-// which checks at its launch that an image's offsets fit in 31 bits
-template <typename Index>
-struct BilinearTapsOf {
+struct BilinearTaps32 {
   float wx0, wx1, wy0, wy1;   // 1-D weights
   float w00, w10, w01, w11;   // tap weights, w10 = wx1 * wy0
   bool i00, i10, i01, i11;    // tap inside the image
-  Index o00, o10, o01, o11;   // tap's pixel index in its image (0 when outside)
+  int o00, o10, o01, o11;     // tap's pixel index in its image (0 when outside)
 };
-using BilinearTaps = BilinearTapsOf<int64_t>;
-using BilinearTaps32 = BilinearTapsOf<int>;
 
-template <typename Index>
-__device__ __forceinline__ BilinearTapsOf<Index> bilinear_taps_of(
-    float cx, float cy, int H, int W) {
-  BilinearTapsOf<Index> t;
+__device__ __forceinline__ BilinearTaps32 bilinear_taps32(float cx, float cy,
+                                                          int H, int W) {
+  BilinearTaps32 t;
   // align_corners=False un-normalization: x = ((g + 1) * W - 1) / 2
   const float x = __fmul_rn(__fadd_rn(__fmul_rn(__fadd_rn(cx, 1.0f), (float)W), -1.0f), 0.5f);
   const float y = __fmul_rn(__fadd_rn(__fmul_rn(__fadd_rn(cy, 1.0f), (float)H), -1.0f), 0.5f);
@@ -62,19 +56,9 @@ __device__ __forceinline__ BilinearTapsOf<Index> bilinear_taps_of(
   const int ix1 = t.i10 || t.i11 ? (int)x1 : 0;
   const int iy0 = t.i00 || t.i10 ? (int)y0 : 0;
   const int iy1 = t.i01 || t.i11 ? (int)y1 : 0;
-  t.o00 = (Index)iy0 * W + ix0;
-  t.o10 = (Index)iy0 * W + ix1;
-  t.o01 = (Index)iy1 * W + ix0;
-  t.o11 = (Index)iy1 * W + ix1;
+  t.o00 = iy0 * W + ix0;
+  t.o10 = iy0 * W + ix1;
+  t.o01 = iy1 * W + ix0;
+  t.o11 = iy1 * W + ix1;
   return t;
-}
-
-__device__ __forceinline__ BilinearTaps bilinear_taps(float cx, float cy,
-                                                      int H, int W) {
-  return bilinear_taps_of<int64_t>(cx, cy, H, W);
-}
-
-__device__ __forceinline__ BilinearTaps32 bilinear_taps32(float cx, float cy,
-                                                          int H, int W) {
-  return bilinear_taps_of<int>(cx, cy, H, W);
 }

@@ -7,12 +7,13 @@ not installed:
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py -q
 
-Tolerances: forward atol 1e-5, value+Jacobian gx/gy and backward d_coords
-1e-6 of their largest magnitude (each kernel repeats its plain version's
-f32 arithmetic in the same order; the forward kernels have measured
-bit-equal on an H100); d_img 1e-5 (atomics add in an order that changes
-from run to run); a refiner with the kernels vs the plain sampler: poses
-1e-5, costs 1e-6 relative (the jvps' products run in another order); the
+Tolerances: forward atol 1e-5, value+Jacobian gx/gy 1e-6 of their
+largest magnitude (each kernel repeats its plain version's f32 arithmetic
+in the same order; the forward kernels have measured bit-equal on an
+H100); backward d_coords bit-equal (``torch.equal``); d_img 1e-5 (atomics
+add in an order that changes from run to run); a refiner with the kernels
+vs the plain sampler: poses 1e-5, costs 1e-6 relative (the jvps' products
+run in another order); the
 decoder tail kernel vs its plain version (cuDNN convolutions, TF32 off)
 atol 1e-5 on the sigmoid output (the sums run in another order), its
 gradient (the plain version's autodiff either way) 1e-6 of the largest.
@@ -110,28 +111,113 @@ def test_kernel_matches_plain(cuda, case, shape, request):
     assert err <= 1e-5
 
 
-@pytest.mark.parametrize("grad_ch", [(), (3,), (0, 1, 2, 3)])
-@pytest.mark.parametrize("shape", [(2, 31, 45, 4), (3, 17, 23, 4),
-                                   (24, 192, 640, 4)])
-def test_bwd_kernel_matches_plain(cuda, shape, grad_ch):
-    """d_coords bit for bit in the kernel's order (limit 1e-6 of its largest
-    magnitude), d_img within 1e-5 (atomics sum in another order)."""
-    img, coords = _inputs(shape, 3, cuda)
-    g = torch.randn(shape, generator=torch.Generator().manual_seed(4)).to(cuda)
-    counters = (gs.LAUNCHES_BWD_COORDS, gs.LAUNCHES_BWD_IMG)
-    d_coords, d_img = gs.grid_sample_bwd(img, coords, g, grad_ch)
+@pytest.fixture(scope="module")
+def train_step_bwd_samples():
+    """The backward launches of one training step in chip_smoke.py's phase
+    "train" setting (``chip_smoke.train_step_bwd_samples``): the solver's
+    three d_coords-only launches at [24,192,640,3], and the loss warp's
+    d_img launch at [24,192,640,4] with the depth terms on and under the
+    defaults."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card")
+    import chip_smoke
+
+    cfg = Config(iterations=chip_smoke.ITERS, num_scales=1,
+                 minibatch=chip_smoke.B, img_resolution="med")
+    return chip_smoke.train_step_bwd_samples(torch, gs, cfg,
+                                             create_train_state, train_step)
+
+
+def _smooth_coords(shape, seed, device):
+    """Near-identity coords: a shift of up to 2 px and 0.5 px of jitter."""
+    rng = np.random.RandomState(seed)
+    b, h, w, _ = shape
+    xs, ys = np.meshgrid(np.arange(w), np.arange(h))
+    c = np.stack([(2 * xs + 1) / w - 1, (2 * ys + 1) / h - 1], -1)[None]
+    px = np.array([2.0 / w, 2.0 / h])
+    c = (c + rng.uniform(-2, 2, (b, 1, 1, 2)) * px
+         + rng.uniform(-0.5, 0.5, (b, h, w, 2)) * px)
+    return torch.from_numpy(c.astype(np.float32)).to(device)
+
+
+def _bwd_launches(case, shape, grad_ch, device, request):
+    """The (img, coords, g, grad_ch) launches of one case."""
+    if case == "train_step":
+        return request.getfixturevalue("train_step_bwd_samples")[shape]
+    img, coords = _inputs(shape, 3, device)
+    if case in ("smooth", "pushed"):
+        coords = _smooth_coords(shape, 5, device)
+    if case == "pushed":            # whole tiles and single pixels at 2.0
+        coords[0, :16] = 2.0
+        coords[torch.rand(shape[:3], generator=torch.Generator().manual_seed(
+            6)).to(device) < 0.1] = 2.0
+    if case == "offset":            # every run misaligned: the scalar path
+        coords = _offset(coords)
+    g = torch.randn(shape, generator=torch.Generator().manual_seed(4)).to(
+        device)
+    return [(img, coords, g, grad_ch)]
+
+
+# the backward kernels' cases: coords uniform in +-1.2 (taps scattered
+# over the image), smooth coords (neighbouring pixels' taps shared), pushed
+# coords (whole runs without an in-image tap), a coords view one float into
+# its storage (the scalar path), C = 3 and 4, and the training step's own
+# launches
+BWD_CASES = [
+    *(("random", s, gc) for s in ((2, 31, 45, 4), (3, 17, 23, 4),
+                                  (24, 192, 640, 4))
+      for gc in ((), (3,), (0, 1, 2, 3))),
+    *(("smooth", (2, 33, 130, 4), gc) for gc in ((), (3,), (0, 1, 2, 3))),
+    ("pushed", (2, 40, 130, 4), (3,)), ("offset", (2, 20, 257, 4), (3,)),
+    ("offset", (2, 8, 256, 3), ()), ("offset", (2, 8, 256, 3), (0, 2)),
+    ("train_step", "coords", ()), ("train_step", "img", (3,)),
+    ("train_step", "img defaults", (3,))]
+
+
+@pytest.mark.parametrize("case,shape,grad_ch", BWD_CASES)
+def test_bwd_kernel_matches_plain(cuda, case, shape, grad_ch, request):
+    """d_coords bit-equal to the plain version (the same f32 operations in
+    the same order), d_img within 1e-5 (atomics sum in another order)."""
+    for img, coords, g, grad_ch in _bwd_launches(case, shape, grad_ch, cuda,
+                                                 request):
+        counters = (gs.LAUNCHES_BWD_COORDS, gs.LAUNCHES_BWD_IMG)
+        d_coords, d_img = gs.grid_sample_bwd(img, coords, g, grad_ch)
+        torch.cuda.synchronize()
+        launched = (gs.LAUNCHES_BWD_COORDS - counters[0],
+                    gs.LAUNCHES_BWD_IMG - counters[1])
+        assert launched == ((0, 1) if grad_ch else (1, 0))
+        ref_coords, ref_img = gs.grid_sample_bwd_plain(img, coords, g,
+                                                       grad_ch)
+        assert torch.equal(d_coords, ref_coords)
+        if not grad_ch:
+            assert d_img is None
+            continue
+        assert d_img.shape == img.shape[:3] + (len(grad_ch),)
+        err = (d_img - ref_img).abs().max().item()
+        print(f"grid_sample_bwd {case} {tuple(img.shape)} {grad_ch}: "
+              f"max|d_img-plain| {err}")
+        assert err <= 1e-5
+
+
+@pytest.mark.parametrize("grad_ch", [(), (3,)])
+def test_bwd_kernel_under_vmap(cuda, grad_ch):
+    """``_GridSampleBwd`` under ``torch.func.vmap`` folds the vmapped
+    dimension into B: one launch, the plain version's results."""
+    v, b, h, w, c = 3, 2, 16, 70, 4
+    img, coords = _inputs((v * b, h, w, c), 9, cuda)
+    g = torch.randn(v * b, h, w, c, generator=torch.Generator()
+                    .manual_seed(10)).to(cuda)
+    before = gs.LAUNCHES_BWD_COORDS + gs.LAUNCHES_BWD_IMG
+    outs = torch.func.vmap(lambda i, co, gg: gs._GridSampleBwd.apply(
+        i, co, gg, grad_ch))(img.view(v, b, h, w, c),
+                             coords.view(v, b, h, w, 2),
+                             g.view(v, b, h, w, c))
     torch.cuda.synchronize()
-    launched = (gs.LAUNCHES_BWD_COORDS - counters[0],
-                gs.LAUNCHES_BWD_IMG - counters[1])
-    assert launched == ((0, 1) if grad_ch else (1, 0))
-    ref_coords, ref_img = gs.grid_sample_bwd_plain(img, coords, g, grad_ch)
-    scale = ref_coords.abs().max().item()
-    assert (d_coords - ref_coords).abs().max().item() <= 1e-6 * scale
+    assert gs.LAUNCHES_BWD_COORDS + gs.LAUNCHES_BWD_IMG == before + 1
+    ref = gs.grid_sample_bwd_plain(img, coords, g, grad_ch)
+    assert torch.equal(outs[0].reshape(v * b, h, w, 2), ref[0])
     if grad_ch:
-        assert d_img.shape == shape[:3] + (len(grad_ch),)
-        assert (d_img - ref_img).abs().max().item() <= 1e-5
-    else:
-        assert d_img is None
+        assert (outs[1].reshape(v * b, h, w, 1) - ref[1]).abs().max() <= 1e-5
 
 
 def test_autograd_picks_the_kernel(cuda):
