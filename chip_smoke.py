@@ -45,7 +45,17 @@ Phases, each printing its elapsed seconds:
      counts, the disparity against the default route at the raw init
      (and both routes against a float64 tail), the pose chain against the
      default route under trained-like conditioning, frames/s of both
-     routes in turns, and peak memory.
+     routes in turns, and peak memory;
+ 10. the fifth main path: PFT (``solver.pft.PFTOptimizer.optimize_window``)
+     at bench.py's setting: encoder mode, 20 epochs, window batch 4, S=2,
+     4 iterations, 192x640, f32 with TF32 off, trained-like weights,
+     uint8-grid images; launch counts per call, ms per window and
+     windows/s (median of 3 calls on CUDA events) with the card's clocks,
+     peak memory, the same call with the plain sampler held within a limit
+     drawn from the plain call's own spread, and a small call on the card
+     against the same call on the CPU, with two witnesses that their gap
+     is rounding (the first forward's mask pixels that differ, and the
+     CPU call against itself with its images one ulp up).
 
 Phase 2 also holds the sampler's two backward kernels (d_coords only,
 and d_coords + d_img; d_coords bit for bit), its value+Jacobian kernel and
@@ -174,6 +184,48 @@ TAIL_TILE_MACS = 16 * 36 * 9 * 32 * 32 + 512 * 9 * 32 * 8 + 12 * 32 * 72
 # products for each f32 one (3xTF32)
 TF32_FLOPS_PER_S = 495e12     # H100 SXM dense TF32 tensor cores
 TAIL_TC_MACS = 9 * 32 * 32 + 9 * 32 * 8
+# phase "pft": bench.py's PFT setting (encoder mode, PFTOptions(epochs=20,
+# num_source_imgs=2), window batch 4, ITERS iterations at H x W)
+PFT_B, PFT_EPOCHS, PFT_TIMED = 4, 20, 3
+# kernel- vs plain-sampler PFT call, from one state, cuDNN deterministic.
+# The first step's gradient (by each trainable tensor) is held as phase
+# "train" holds the step's (step_grad_limits: max(STEP_GRAD_TOL,
+# STEP_SPREAD_FACTOR x the plain gradient's own spread), at most
+# STEP_GRAD_CAP). The whole call: the first epoch's loss (no update before
+# it) within STEP_LOSS_TOL; the losses, poses_opt and disp_opt each within
+# max(PFT_TOL, PFT_SPREAD_FACTOR x the plain call's own spread), at most
+# PFT_CAP, as relative L2. The spreads: the plain run again with its loss
+# scaled one ulp above and one below 1 (STEP_LOSS_SCALES) and the gradients
+# scaled back. Adam's first step is ~lr·sign(g), so a gradient within
+# rounding of 0 moves its weight by 2·lr from one run to the other, and 19
+# steps carry that far. Measured on an H100 (python -m
+# tcsfm_torch.step_grad_spread --pft, three states in each of three
+# processes, and this phase): the plain call's own spread, relative L2,
+# 5.9e-4..1.3e-2 (losses), 9.3e-3..3.7e-2 (poses_opt), 1.3e-2..9.9e-2
+# (disp_opt), on this phase's state 3.1e-2..4.1e-2 (disp_opt); the kernel
+# call at most 1.33x its spread and 7.3e-2 (disp_opt; 4.2e-2 on this
+# phase's state). PFT_CAP is 1.5x the largest spread read, 9.9e-2. The
+# first step's gradients: 2.3e-6..2.7e-6 apart
+PFT_TOL = 1e-5
+PFT_SPREAD_FACTOR = 4
+PFT_CAP = 0.15
+PFT_FIELDS = ("losses", "poses_opt", "disp_opt")
+# a small PFT call (B=2, S=2, 64x96, 3 epochs, trained-like) on the card
+# against the same call on the CPU: the first loss within PFT_CPU_LOSS_TOL
+# relative (a pixel that enters or leaves the automask, whose comparison
+# f32 does not resolve, moves the loss by ~1/12,288 of its error; measured
+# 3.4e-5), the first step's gradients within REF_GRAD_TOL_F32 relative
+# L2 (f32 resolves this loss's gradient only to ~1e-2, as the training
+# step's), and the call's losses, poses_opt and disp_opt within
+# PFT_CPU_TOL relative L2. Adam's first step is ~lr·sign(g) on every
+# weight, and a gradient that f32 does not resolve takes either sign, so
+# the card's call and the CPU's part further than a rerun of either does
+# with its loss scaled one ulp (on an H100: card vs CPU 7.2e-4 to 7.6e-4
+# in the losses, 2.4e-2 in poses_opt, 1.8e-2 in disp_opt; the CPU call's
+# own spread 8.5e-5, 2.0e-3, 2.3e-4)
+PFT_SMALL = (2, 64, 96, 3)
+PFT_CPU_LOSS_TOL = 1e-4
+PFT_CPU_TOL = 0.1
 
 
 T0 = time.monotonic()
@@ -1831,6 +1883,290 @@ def phase_tail(torch, gs, dt, cfg, build_models, coupled_forward):
     return counts[:2]
 
 
+def pft_expected_launches(epochs: int, iters: int):
+    """(value, d_coords only, d_coords + d_img) launches of one
+    ``optimize_window`` call in a mode that trains depth: every forward
+    makes ``iters`` warps, every updated step's backward takes each
+    3-channel warp's d_coords and the 4-channel warp's d_coords + d_img."""
+    return (epochs * iters, (epochs - 1) * (iters - 1), epochs - 1)
+
+
+def pft_batch(torch, b, h, w, seed, device):
+    """A window batch of smooth images on the uint8 grid (k/255), as
+    frames read from files are, and KITTI-like K."""
+    import numpy as np
+
+    tgt, src, K = smooth_inputs(torch, b, S, h, w, seed)
+    grid = lambda x: (np.round(x * 255.0) / 255.0).astype(np.float32)  # noqa
+    return {k: torch.from_numpy(np.ascontiguousarray(v)).to(device)
+            for k, v in (("target_img", grid(tgt)),
+                         ("source_imgs", grid(src)), ("intrinsics", K))}
+
+
+def pft_results(res):
+    return {k: getattr(res, k).detach().double().cpu() for k in PFT_FIELDS}
+
+
+def rel_l2_of(ours, ref) -> float:
+    """||ours - ref|| / ||ref|| over all entries."""
+    return ((ours - ref).norm() / ref.norm().clamp_min(1e-30)).item()
+
+
+def rel_max(ours, ref) -> float:
+    """max |ours - ref| over max |ref|."""
+    return ((ours - ref).abs().max() / ref.abs().max().clamp_min(1e-30)
+            ).item()
+
+
+def scaled_loss_optimizer(pft, scale):
+    """``PFTOptimizer`` whose backward runs on the loss times ``scale`` and
+    divides the gradients by it: the same steps, rounded differently."""
+
+    class Scaled(pft.PFTOptimizer):
+        def _gradients(self, loss, params):
+            return tuple(g / scale
+                         for g in super()._gradients(loss * scale, params))
+
+    return Scaled
+
+
+def pft_first_step(torch, opt, batch, sampler, scale=1.0):
+    """The first PFT step's loss and gradients, by trainable tensor, from
+    ``opt``'s state; the backward on the loss times ``scale``, the
+    gradients divided by it."""
+    win = opt._prepare(batch, batch["target_img"].device)
+    loss, _ = opt._forward(win, sampler)
+    params = list(win.trainable.values())
+    grads = torch.autograd.grad(loss * scale, params)
+    if loss.is_cuda:
+        torch.cuda.synchronize()
+    return loss.detach(), {k: g / scale for k, g in zip(win.trainable, grads)}
+
+
+def pft_call_readings(torch, gs, pft, opt, batch):
+    """The kernel- and plain-sampler PFT calls from ``opt``'s state (cuDNN
+    deterministic), and the plain call again with its loss scaled one ulp
+    above and one below 1 (``STEP_LOSS_SCALES``). Returns, by field of
+    ``PFT_FIELDS``, the kernel call's distance from the plain one and the
+    plain call's own spread (the larger of the two rescaled runs'), each
+    as relative L2 and as max |diff| / max |plain|; and the first loss of
+    the kernel call and of the plain one."""
+    plain = gs.grid_sample_plain
+    with cudnn_deterministic(torch):
+        call = pft_results(opt.optimize_window(batch))
+        call_ref = pft_results(opt.optimize_window(batch, sampler=plain))
+        reruns = [pft_results(scaled_loss_optimizer(pft, c)(
+            opt.cfg, opt.opts, opt.depth_net, opt.pose_net,
+            mode=opt.mode).optimize_window(batch, sampler=plain))
+            for c in STEP_LOSS_SCALES]
+    readings = {}
+    for k in PFT_FIELDS:
+        check(bool(torch.isfinite(call[k]).all()), f"PFT call: {k} not "
+              f"finite")
+        readings[k] = {
+            "rel_l2": rel_l2_of(call[k], call_ref[k]),
+            "spread": max(rel_l2_of(r[k], call_ref[k]) for r in reruns),
+            "rel_max": rel_max(call[k], call_ref[k]),
+            "spread_max": max(rel_max(r[k], call_ref[k]) for r in reruns)}
+    return readings, (call["losses"][0].item(), call_ref["losses"][0].item())
+
+
+def pft_parity(torch, gs, pft, opt, batch, what):
+    """The kernel- vs plain-sampler PFT from one state (cuDNN
+    deterministic): the first step's gradients, then the whole call, each
+    within limits drawn from the plain run's own spread. Returns the worst
+    gradient relative L2, its worst spread and the widened tensors, and
+    each field's (error, spread, limit) of the call and the first loss's
+    difference."""
+    plain = gs.grid_sample_plain
+    with cudnn_deterministic(torch):
+        _, ours = pft_first_step(torch, opt, batch, gs.grid_sample)
+        _, ref = pft_first_step(torch, opt, batch, plain)
+        spread_runs = [rel_l2(pft_first_step(torch, opt, batch, plain, c)[1],
+                              ref) for c in STEP_LOSS_SCALES]
+    spread = {k: max(s[k] or 0.0 for s in spread_runs) for k in ref}
+    limits, widened = step_grad_limits(spread, f"{what}, first step")
+    worst = compare_grads(ours, ref, limits.get, f"{what}, first step")
+    grads = (worst, max(spread.values()), widened)
+
+    readings, (loss0, ref_loss0) = pft_call_readings(torch, gs, pft, opt,
+                                                     batch)
+    first = abs(loss0 - ref_loss0)
+    fields = {}
+    for k, r in readings.items():
+        limit = min(PFT_CAP, max(PFT_TOL, PFT_SPREAD_FACTOR * r["spread"]))
+        fields[k] = (r["rel_l2"], r["spread"], limit, r["rel_max"])
+    say("pft", f"{what}: " + ", ".join(
+        f"{k} relative L2 {e:.3e} (max {m:.3e}; plain run's own spread "
+        f"{sp:.3e}, limit {lim:.3e})" for k, (e, sp, lim, m)
+        in fields.items()) + f"; first loss diff {first:.3e}")
+    check(first <= STEP_LOSS_TOL * abs(ref_loss0),
+          f"{what}: first loss differs by {first}")
+    for k, (err, sp, limit, _) in fields.items():
+        check(err <= limit, f"{what}: {k} kernel vs plain relative L2 {err} "
+              f"> {limit} (plain call's own spread {sp})")
+    return grads, fields, first
+
+
+def pft_first_masks(torch, opt, batch):
+    """The first PFT forward's automask and valid mask (fwd and inv, each
+    [2SB, H, W, 1]) in a mode that trains depth, from ``opt``'s state: the
+    coupled solve with its error products on the initial disparities."""
+    from tcsfm_torch.solver.coupled import solve_pose_iteratively
+    from tcsfm_torch.utils.helpers import disp_to_depth
+
+    win = opt._prepare(batch, batch["target_img"].device)
+    b, cfg = win.target_img.shape[0], opt.cfg
+    with torch.no_grad():
+        depths = disp_to_depth(win.init_disps, cfg.min_depth,
+                               cfg.max_depth)[1].reshape(
+            (-1, b) + win.init_disps.shape[1:])
+        _, _, out = solve_pose_iteratively(
+            cfg.iterations, depths, win.pose_net, win.target_img,
+            win.source_imgs, win.K, return_errors=True)
+    return {k: torch.cat([getattr(out["fwd"], k), getattr(out["inv"], k)])
+            .cpu() for k in ("auto_mask", "valid_mask")}
+
+
+def one_ulp_up(torch, batch):
+    """``batch`` with every image value moved one ulp up."""
+    return {k: torch.nextafter(v, torch.full_like(v, 2.0))
+            if k != "intrinsics" else v for k, v in batch.items()}
+
+
+def phase_pft(torch, gs, cfg, build_models):
+    """The fifth main path: PFT at bench.py's setting. Launch counts, ms
+    per window and windows/s with the clocks, peak memory, the kernel- vs
+    plain-sampler call, and a small call on the card against the CPU.
+    Returns the launches (value, d_coords, d_img) of one call."""
+    import copy
+
+    from tcsfm_torch.config import PFTOptions
+    from tcsfm_torch.solver import pft
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    depth_net, pose_net = build_models(
+        cfg, device="cuda", generator=torch.Generator().manual_seed(0))
+    condition_like_trained(depth_net, torch)
+    batch = pft_batch(torch, PFT_B, H, W, seed=7, device="cuda")
+    opts = PFTOptions(epochs=PFT_EPOCHS, num_source_imgs=S)
+    opt = pft.PFTOptimizer(cfg, opts, depth_net, pose_net, mode="encoder")
+    expected = pft_expected_launches(PFT_EPOCHS, ITERS)
+    before = copy.deepcopy(depth_net.state_dict())
+
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts(gs)
+    res = opt.optimize_window(batch)
+    torch.cuda.synchronize()
+    counts = read_counts(gs)
+    check(counts == expected, f"launches (fwd, bwd_coords, bwd_img) "
+          f"{counts} in one PFT call, expected {expected}")
+    shapes = {"poses_opt": (S, PFT_B, 6), "poses_inv_opt": (S, PFT_B, 6),
+              "disp_opt": (PFT_B, H, W), "losses": (PFT_EPOCHS,)}
+    for k, shape in shapes.items():
+        t = getattr(res, k)
+        check(tuple(t.shape) == shape, f"{k} shape {tuple(t.shape)}")
+        check(bool(torch.isfinite(t).all()), f"{k} has non-finite values")
+    check(all(torch.equal(v, before[k])
+              for k, v in depth_net.state_dict().items()),
+          "optimize_window changed the caller's depth net")
+    losses = res.losses.tolist()
+    say("pft", f"main path: per PFT call launches (fwd, bwd_coords, "
+        f"bwd_img) {counts}, expected E·I, (E-1)(I-1), E-1 = {expected}; "
+        f"losses {losses[0]:.6f} -> {losses[-1]:.6f} (min "
+        f"{min(losses):.6f}); scale_init {float(res.scale_init):.4f}, "
+        f"scale_opt {float(res.scale_opt):.4f}")
+
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in "se")
+
+    def timed_calls():
+        ms = []
+        for _ in range(PFT_TIMED):
+            zero_counts(gs)
+            start.record()
+            opt.optimize_window(batch)
+            end.record()
+            torch.cuda.synchronize()
+            ms.append(start.elapsed_time(end))
+            check(read_counts(gs) == expected, "launches of a timed call")
+        return ms
+
+    ms, clocks = with_clocks(timed_calls)
+    counts = read_counts(gs)  # the main path's own: the last timed call
+    med = statistics.median(ms)
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60).stdout.strip().splitlines()[0]
+    say("pft", f"{card}: PFT encoder {H}x{W} window batch {PFT_B} S={S} "
+        f"iters={ITERS} epochs={PFT_EPOCHS} f32: median {med:.3f} ms a call "
+        f"over {len(ms)} after 1 warm-up (CUDA events; {ms}) -> "
+        f"{med / PFT_B:.3f} ms per window, {PFT_B / med * 1e3:.3f} "
+        f"windows/s; clocks {clocks}; peak memory "
+        f"{torch.cuda.max_memory_allocated() / 2**20:.1f} MiB")
+
+    (worst, spread, widened), fields, first = pft_parity(
+        torch, gs, pft, opt, batch, "PFT kernel vs plain sampler")
+    say("pft", f"kernel- vs plain-sampler first step from one state (cuDNN "
+        f"deterministic): worst gradient relative L2 {worst:.3e} over the "
+        f"encoder's {len(list(opt.depth_net.encoder.parameters()))} "
+        f"parameter tensors (limit {STEP_GRAD_TOL}, or "
+        f"{STEP_SPREAD_FACTOR}x the plain step's own spread where larger, "
+        f"at most {STEP_GRAD_CAP}; worst spread {spread:.3e}); "
+        f"{len(widened)} widened: " + (", ".join(
+            f"{k} {e:.3e} -> {v:.3e}" for k, (e, v)
+            in sorted(widened.items())) or "none"))
+    say("pft", f"kernel- vs plain-sampler PFT call from one state: held "
+        f"(first loss within {STEP_LOSS_TOL} relative, each field's "
+        f"relative L2 within its limit, cap {PFT_CAP})")
+
+    b, h, w, epochs = PFT_SMALL
+    small = PFTOptions(epochs=epochs, num_source_imgs=S)
+    d_cpu, p_cpu = build_models(cfg, device="cpu",
+                                generator=torch.Generator().manual_seed(1))
+    condition_like_trained(d_cpu, torch)
+    cpu_batch = pft_batch(torch, b, h, w, seed=8, device="cpu")
+    card_batch = {k: v.cuda() for k, v in cpu_batch.items()}
+    cpu_opt = pft.PFTOptimizer(cfg, small, d_cpu, p_cpu)
+    card_opt = pft.PFTOptimizer(cfg, small, copy.deepcopy(d_cpu).cuda(),
+                                copy.deepcopy(p_cpu).cuda())
+    loss_c, grads_c = pft_first_step(torch, cpu_opt, cpu_batch,
+                                     gs.grid_sample)
+    loss_g, grads_g = pft_first_step(torch, card_opt, card_batch,
+                                     gs.grid_sample)
+    first = abs(loss_g.item() - loss_c.item()) / abs(loss_c.item())
+    check(first <= PFT_CPU_LOSS_TOL, f"PFT card vs CPU: first loss {first}")
+    worst = compare_grads({k: g.cpu() for k, g in grads_g.items()}, grads_c,
+                          REF_GRAD_TOL_F32, "PFT card vs CPU, first step")
+    on_cpu = pft_results(cpu_opt.optimize_window(cpu_batch, device="cpu"))
+    on_card = pft_results(card_opt.optimize_window(card_batch))
+    errs = {k: rel_l2_of(on_card[k], on_cpu[k]) for k in PFT_FIELDS}
+    # witnesses that the gap is rounding: the first forward's mask pixels
+    # that differ card vs CPU, and the CPU call against itself with its
+    # images one ulp up (no kernel, no other device)
+    masks_c = pft_first_masks(torch, cpu_opt, cpu_batch)
+    masks_g = pft_first_masks(torch, card_opt, card_batch)
+    flips = {k: int((masks_c[k] != masks_g[k]).sum()) for k in masks_c}
+    on_cpu_ulp = pft_results(cpu_opt.optimize_window(
+        one_ulp_up(torch, cpu_batch), device="cpu"))
+    ulp = {k: rel_l2_of(on_cpu_ulp[k], on_cpu[k]) for k in PFT_FIELDS}
+    say("pft", f"{h}x{w}: first forward's pixels that differ card vs CPU "
+        f"of {masks_c['auto_mask'].numel()}: {flips}; the CPU call with "
+        f"its images one ulp up against the CPU call, relative L2 "
+        + ", ".join(f"{k} {e:.3e}" for k, e in ulp.items()))
+    say("pft", f"{h}x{w} B={b} S={S} {epochs} epochs, trained-like: card vs "
+        f"CPU first loss {first:.3e} relative (limit {PFT_CPU_LOSS_TOL}), "
+        f"first "
+        f"step's worst gradient relative L2 {worst:.3e} (limit "
+        f"{REF_GRAD_TOL_F32}); the call's relative L2 " + ", ".join(
+            f"{k} {e:.3e}" for k, e in errs.items())
+        + f" (limit {PFT_CPU_TOL})")
+    check(max(errs.values()) <= PFT_CPU_TOL, f"PFT card vs CPU at {h}x{w}: "
+          f"{errs} > {PFT_CPU_TOL}")
+    return counts
+
+
 def med_config():
     """The main path's configuration: med res, B=6, 4 iterations."""
     from tcsfm_torch.config import Config
@@ -1956,20 +2292,26 @@ def main() -> int:
     tail_launches, tail_fwd_launches = phase_tail(
         torch, gs, dt, cfg, build_models, coupled_forward)
     say("tail", f"phase took {time.monotonic() - t:.2f} s")
+    t = time.monotonic()
+    pft_counts = phase_pft(torch, gs, cfg, build_models)
+    say("pft", f"phase took {time.monotonic() - t:.2f} s")
 
     fwd_src = "tcsfm_torch/ops/csrc/grid_sample.cu"
     bwd_src = "tcsfm_torch/ops/csrc/grid_sample_bwd.cu"
     no_refine = {k: 0 for k in refine_counts}
-    # launches per forward, training step, refiner call, tail-route forward
+    # launches per forward, training step, refiner call, tail-route
+    # forward, PFT call
     per_path = {
         "grid_sample_fwd": (launches, step_counts[0],
                             {k: v[0] for k, v in refine_counts.items()},
-                            tail_fwd_launches),
-        "grid_sample_bwd_coords": (0, step_counts[1], no_refine, 0),
-        "grid_sample_bwd_img": (0, step_counts[2], no_refine, 0),
+                            tail_fwd_launches, pft_counts[0]),
+        "grid_sample_bwd_coords": (0, step_counts[1], no_refine, 0,
+                                   pft_counts[1]),
+        "grid_sample_bwd_img": (0, step_counts[2], no_refine, 0,
+                                pft_counts[2]),
         "grid_sample_with_grads": (0, 0, {k: v[1] for k, v in
-                                          refine_counts.items()}, 0),
-        "decoder_tail": (0, 0, no_refine, tail_launches)}
+                                          refine_counts.items()}, 0, 0),
+        "decoder_tail": (0, 0, no_refine, tail_launches, 0)}
     kernels = []
     for name, source, replaces, row in (
             ("grid_sample_fwd", fwd_src, "tcsfm/ops/warp_mxu.py:470",
@@ -1982,15 +2324,16 @@ def main() -> int:
              dict(grads_rows[RB], chain_windows=grads_rows[BLOCK - 2])),
             ("decoder_tail", "tcsfm_torch/ops/csrc/decoder_tail.cu",
              "experiments/decoder_tail.py:200", tail_row)):
-        fwd, step, refine, tail_fwd = per_path[name]
+        fwd, step, refine, tail_fwd, pft_call = per_path[name]
         kernels.append(dict(name=name, route="cuda", source=source,
                             replaces=replaces,
                             launches=fwd + step + sum(refine.values())
-                            + tail_fwd,
+                            + tail_fwd + pft_call,
                             launches_per_forward=fwd,
                             launches_per_train_step=step,
                             launches_per_refiner_call=refine,
-                            launches_per_tail_forward=tail_fwd, **row))
+                            launches_per_tail_forward=tail_fwd,
+                            launches_per_pft_call=pft_call, **row))
     print(json.dumps({"kernels": kernels}), flush=True)
     faulthandler.cancel_dump_traceback_later()
     print(json.dumps({"ok": True, "device": {

@@ -7,7 +7,9 @@ against it by ``tests/test_torch_*.py``. Importing the package builds
 nothing: the CUDA kernels are compiled at their first launch
 (``tcsfm_torch.ops._build``).
 
-Entry points: ``tcsfm_torch.infer`` (``build_models``, ``coupled_forward``)
-and ``tcsfm_torch.train.trainer`` (``create_train_state``, ``train_step``,
-``eval_step``, ``Trainer``).
+Entry points: ``tcsfm_torch.infer`` (``build_models``, ``coupled_forward``),
+``tcsfm_torch.train.trainer`` (``create_train_state``, ``train_step``,
+``eval_step``, ``Trainer``), the refiners (``tcsfm_torch.solver.ba``,
+``tcsfm_torch.solver.gauss_newton``), PFT (``tcsfm_torch.solver.pft``,
+``PFTOptimizer``) and ``python -m tcsfm_torch.cli.demo_pft``.
 """

@@ -2,7 +2,7 @@
 goes on the card.
 
     python -m tcsfm_torch.profile_forward [--iters 5] [--tf32]
-        [--tail | --train | --refiners]
+        [--tail | --train | --refiners | --pft]
 
 Runs the main path (med res 192x640, B=6, S=2, 4 iterations, f32, seeded
 random weights) and prints: the forward's median wall time, the device
@@ -25,6 +25,20 @@ backward), the loss stack forward+backward with its own warp (1 forward,
 1 d_img backward), the optimizer update, and the rest (the step minus the
 pieces: the solver's and the warps' glue, the backward of the packing);
 then the profiler's top kernels of the step.
+
+``--pft`` splits one PFT call at bench.py's setting (encoder mode, 20
+epochs, window batch 4, S=2, 4 iterations, 192x640, f32), on the inputs
+of ``chip_smoke.py``'s phase "pft" (its seeded weights with trained-like
+conditioning, its smooth uint8-grid window batch; run from the
+repository root): the call's median device time (CUDA events) and ms per
+window; one updated step (forward, backward, flip-merge, update); and
+the device time of each piece of a step run alone at its shapes: the
+depth net forward+backward on the (S+1)B images (eval-mode BatchNorm,
+the encoder trainable), the coupled solver with its error products
+forward+backward (4 pose-net passes, 4 warps, 3 d_coords-only and 1 d_img
+backward), the sampler kernels alone at those shapes, the PFT loss
+forward+backward, the Adam update, and the two flip-merge depth
+forwards; then the profiler's top kernels of one step.
 
 ``--refiners`` splits one Levenberg-Marquardt iteration of ``window_ba``
 at the refiners' window batch (4 windows at 192x640, f32, TF32 off): the
@@ -49,7 +63,7 @@ import numpy as np
 import torch
 from torch.profiler import ProfilerActivity, profile
 
-from tcsfm_torch.config import Config
+from tcsfm_torch.config import Config, PFTOptions
 from tcsfm_torch.infer import build_models, coupled_forward
 from tcsfm_torch.losses.photometric import compute_losses
 from tcsfm_torch.models.depth import make_tail_apply, tail_weights
@@ -57,6 +71,7 @@ from tcsfm_torch.ops.decoder_tail import decoder_tail
 from tcsfm_torch.ops.grid_sample import grid_sample, grid_sample_bwd
 from tcsfm_torch.train.trainer import create_train_state, train_step
 from tcsfm_torch.solver.coupled import solve_disp, solve_pose_iteratively
+from tcsfm_torch.solver.pft import PFTOptimizer, compute_optimization_loss
 from tcsfm_torch.utils.helpers import disp_to_depth
 
 
@@ -174,6 +189,105 @@ def train_split(args) -> None:
     _top_kernels(lambda: train_step(state, batch), args.iters, "step")
 
 
+def pft_split(args) -> None:
+    """One PFT call's device time, whole, by step and by piece."""
+    import chip_smoke as cs
+
+    cfg = cs.med_config()
+    h, w = cfg.image_size
+    b, s, epochs = cs.PFT_B, cfg.num_source_imgs, cs.PFT_EPOCHS
+    n = 2 * s * b
+    depth_net, pose_net = build_models(
+        cfg, device="cuda", generator=torch.Generator().manual_seed(0))
+    cs.condition_like_trained(depth_net, torch)
+    batch = cs.pft_batch(torch, b, h, w, seed=7, device="cuda")
+    K = batch["intrinsics"]
+    rng = np.random.RandomState(0)
+
+    def rand(*shape):
+        return torch.from_numpy(rng.rand(*shape).astype(np.float32)).cuda()
+
+    opt = PFTOptimizer(cfg, PFTOptions(epochs=epochs, num_source_imgs=s),
+                       depth_net, pose_net, mode="encoder")
+    call_ms = _median_event_ms(lambda: opt.optimize_window(batch), args.iters)
+
+    win = opt._prepare(batch, torch.device("cuda"))
+    params = list(win.trainable.values())
+    tx = opt._make_optimizer(params)
+
+    def step():
+        loss, _ = opt._forward(win, grid_sample)
+        for p, g in zip(params, opt._gradients(loss, params)):
+            p.grad = g
+        opt._flip_merged_disp(win.depth_net, win.target_img)
+        tx.step()
+
+    step_ms = _median_event_ms(step, args.iters)
+
+    def depth():
+        out = win.depth_net(win.imgs)[0]
+        torch.autograd.grad(out, params, torch.ones_like(out))
+
+    with torch.no_grad():
+        disps = win.depth_net(win.imgs)[0]
+    depths = disp_to_depth(disps, cfg.min_depth, cfg.max_depth)[1].reshape(
+        s + 1, b, h, w, 1)
+
+    def solver():
+        d = depths.detach().requires_grad_(True)
+        _, _, out = solve_pose_iteratively(
+            cfg.iterations, d, win.pose_net, win.target_img, win.source_imgs,
+            K, return_errors=True)
+        (out["fwd"].diff_img.sum() + out["fwd"].weight_mask.sum()
+         + out["inv"].diff_img.sum()).backward()
+
+    xs, ys = np.meshgrid(np.arange(w), np.arange(h))
+    ident = np.stack([(2 * xs + 1) / w - 1, (2 * ys + 1) / h - 1], -1)
+    coords = torch.from_numpy((ident + rng.uniform(-0.01, 0.01, (n, h, w, 2)))
+                              .astype(np.float32)).cuda()
+    img3, img4, g3, g4 = (rand(n, h, w, c) for c in (3, 4, 3, 4))
+
+    def sampler():
+        for _ in range(cfg.iterations - 1):
+            grid_sample(img3, coords)
+            grid_sample_bwd(img3, coords, g3)
+        grid_sample(img4, coords)
+        grid_sample_bwd(img4, coords, g4, (3,))
+
+    with torch.no_grad():
+        _, _, out = solve_pose_iteratively(
+            cfg.iterations, depths, win.pose_net, win.target_img,
+            win.source_imgs, K, return_errors=True)
+
+    def loss():
+        fwd = out["fwd"]._replace(
+            diff_img=out["fwd"].diff_img.clone().requires_grad_(True),
+            weight_mask=out["fwd"].weight_mask.clone().requires_grad_(True))
+        target = disps[:b].clone().requires_grad_(True)
+        compute_optimization_loss(opt.opts, win.target_img, target,
+                                  disps[:b], fwd, out["inv"]).backward()
+
+    parts = {"depth net fwd+bwd": depth,
+             "solver with errors fwd+bwd": solver,
+             "  of which sampler kernels": sampler,
+             "PFT loss fwd+bwd": loss, "optimizer (Adam)": tx.step,
+             "flip-merge (2 depth fwds)":
+                 lambda: opt._flip_merged_disp(win.depth_net, win.target_img)}
+    times = {k: _median_event_ms(fn, args.iters) for k, fn in parts.items()}
+    print(f"{torch.cuda.get_device_name(0)}; TF32 convs {args.tf32}; PFT "
+          f"encoder {h}x{w} window batch {b} S={s} iters={cfg.iterations} "
+          f"epochs={epochs}: median device {call_ms:.3f} ms a call over "
+          f"{args.iters} -> {call_ms / b:.3f} ms per window, "
+          f"{b / call_ms * 1e3:.3f} windows/s; one updated step with its "
+          f"flip-merge {step_ms:.3f} ms")
+    print("device ms of each piece run alone at a step's shapes:")
+    for k, t in times.items():
+        print(f"  {k:<36} {t:9.3f}  {t / step_ms:6.1%}")
+    rest = step_ms - sum(t for k, t in times.items() if not k.startswith(" "))
+    print(f"  {'rest (step - pieces)':<36} {rest:9.3f}  {rest / step_ms:6.1%}")
+    _top_kernels(step, args.iters, "step")
+
+
 _REFINER_KINDS = (  # kernel-name patterns of the pieces of an LM iteration
     ("sampler kernels (value, value+Jacobian)", ("grid_sample",)),
     ("matmuls: einsum reductions, 3x3 geometry", ("gemm", "gemv", "Gemv")),
@@ -255,6 +369,8 @@ def main(argv=None) -> None:
                     help="split the training step instead of the forward")
     ap.add_argument("--refiners", action="store_true",
                     help="split one LM iteration of window_ba instead")
+    ap.add_argument("--pft", action="store_true",
+                    help="split one PFT call (encoder mode) instead")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile_forward needs an NVIDIA card")
@@ -265,6 +381,9 @@ def main(argv=None) -> None:
         return
     if args.refiners:
         refiners_split(args)
+        return
+    if args.pft:
+        pft_split(args)
         return
 
     cfg = Config(iterations=4, minibatch=6)

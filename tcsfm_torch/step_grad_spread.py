@@ -1,6 +1,7 @@
-"""How far the training step's gradients move from run to run, on the card.
+"""How far the training step's gradients, or a PFT call, move from run to
+run, on the card.
 
-    python -m tcsfm_torch.step_grad_spread [--runs 10]
+    python -m tcsfm_torch.step_grad_spread [--runs 10] [--pft]
 
 Run from the repository root: it takes its settings and its check from
 ``chip_smoke.py``. The settings are those that ``chip_smoke.step_grad_parity``
@@ -12,7 +13,13 @@ plain-sampler step against a second one, and of the kernel step against the
 plain one, with cuDNN's default and with its deterministic algorithms. Then
 it runs ``step_grad_parity`` on the same states and prints how often it
 passed, with each run's worst error, worst spread and widened tensors.
-Needs the card.
+
+``--pft`` measures phase "pft"'s whole-call comparison instead
+(``chip_smoke.pft_call_readings``, cuDNN deterministic): on ``--runs``
+states, run r with the phase's weights and window batch seeds plus r (run
+0 is the phase's own state), the kernel call against the plain one and
+the plain call's own spread, by field, as relative L2 and as max |diff|
+over max |plain|, then the largest of each over the runs. Needs the card.
 """
 
 from __future__ import annotations
@@ -23,7 +30,7 @@ import dataclasses
 
 import torch
 
-from tcsfm_torch.config import Config
+from tcsfm_torch.config import Config, PFTOptions
 from tcsfm_torch.ops import grid_sample as gs
 from tcsfm_torch.train.trainer import (create_train_state, forward_loss,
                                        train_step)
@@ -46,9 +53,41 @@ def settings(cs):
         yield f"phase train {cs.H}x{cs.W} B={cs.B}, {label}", st, batch
 
 
+def pft_spread(cs, runs: int) -> None:
+    """Print phase "pft"'s call readings on ``runs`` states, and the
+    largest of each over them."""
+    from tcsfm_torch.infer import build_models
+    from tcsfm_torch.solver import pft
+
+    cfg = cs.med_config()
+    opts = PFTOptions(epochs=cs.PFT_EPOCHS, num_source_imgs=cs.S)
+    largest = {}
+    for r in range(runs):
+        depth_net, pose_net = build_models(
+            cfg, device="cuda", generator=torch.Generator().manual_seed(r))
+        cs.condition_like_trained(depth_net, torch)
+        batch = cs.pft_batch(torch, cs.PFT_B, cs.H, cs.W, seed=7 + r,
+                             device="cuda")
+        opt = pft.PFTOptimizer(cfg, opts, depth_net, pose_net,
+                               mode="encoder")
+        readings, (loss0, ref0) = cs.pft_call_readings(torch, gs, pft, opt,
+                                                       batch)
+        print(f"PFT state {r}: first loss kernel {loss0:.9g}, plain "
+              f"{ref0:.9g}; " + "; ".join(
+                  f"{k} " + ", ".join(f"{m} {v:.3e}" for m, v in rd.items())
+                  for k, rd in readings.items()), flush=True)
+        for k, rd in readings.items():
+            for m, v in rd.items():
+                largest[k, m] = max(v, largest.get((k, m), 0.0))
+    print(f"PFT largest over {runs} states: " + ", ".join(
+        f"{k} {m} {v:.3e}" for (k, m), v in largest.items()), flush=True)
+
+
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--runs", type=int, default=10)
+    ap.add_argument("--pft", action="store_true",
+                    help="phase pft's whole-call comparison instead")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("step_grad_spread needs an NVIDIA card")
@@ -57,6 +96,9 @@ def main(argv=None) -> None:
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     print(torch.cuda.get_device_name(0), flush=True)
+    if args.pft:
+        pft_spread(cs, args.runs)
+        return
     worst, passed, failed = {}, {}, {}
     for _ in range(args.runs):
         for label, state, batch in settings(cs):

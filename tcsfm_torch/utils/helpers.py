@@ -1,5 +1,6 @@
-"""Disparity/depth conversion (counterpart of ``tcsfm/utils/helpers.py:12-27``),
-and the device rule of the port's entry points."""
+"""Disparity/depth conversion and the flip-merge post-processing
+(counterpart of ``tcsfm/utils/helpers.py``), and the device rule of the
+port's entry points."""
 
 from __future__ import annotations
 
@@ -22,6 +23,22 @@ def depth_to_disp(depth: torch.Tensor, min_depth: float, max_depth: float):
     min_disp = 1.0 / max_depth
     max_disp = 1.0 / min_depth
     return (1.0 / depth - min_disp) / (max_disp - min_disp)
+
+
+def post_process_disparity(l_disp: torch.Tensor,
+                           r_disp: torch.Tensor) -> torch.Tensor:
+    """Monodepth1 flip-merge post-processing.
+
+    l_disp, r_disp: [B, H, W]: disparity of the image and of the flipped
+    image (already un-flipped). Blends with edge-favouring ramp masks.
+    """
+    w = l_disp.shape[-1]
+    m_disp = 0.5 * (l_disp + r_disp)
+    ramp = torch.linspace(0.0, 1.0, w, dtype=l_disp.dtype,
+                          device=l_disp.device)[None, None, :]
+    l_mask = 1.0 - (20.0 * (ramp - 0.05)).clamp(0.0, 1.0)
+    r_mask = l_mask.flip(-1)
+    return r_mask * l_disp + l_mask * r_disp + (1.0 - l_mask - r_mask) * m_disp
 
 
 def resolve_device(device=None) -> torch.device:

@@ -459,3 +459,55 @@ def test_make_tail_apply_on_card(cuda):
     assert dt.LAUNCHES == before + 1
     assert tail.shape == plain.shape == (3, 64, 96, 1)
     assert (tail - plain).abs().max().item() <= 1e-5
+
+
+@pytest.mark.parametrize("mode", ["encoder", "pose"])
+def test_pft_on_card(cuda, mode):
+    """One PFT call at 64x96, B=2, S=2, 4 iterations, 4 epochs with the
+    kernels against the same call with the plain sampler
+    (``chip_smoke.pft_parity``, cuDNN deterministic: the first step's
+    gradients as ``test_train_step_on_card`` holds a step's; the first
+    loss within 1e-6 relative; the losses, poses_opt and disp_opt within
+    max(1e-5, 4x the plain call's own spread), at most 0.25, as relative
+    L2). Launches: encoder mode E·I value, (E-1)(I-1) d_coords-only and
+    E-1 d_img; 'pose' mode trains no depth, so the 4-channel warp's
+    backward is d_coords only too, at C=4: (E-1)·I and no d_img."""
+    import chip_smoke
+    from tcsfm_torch.config import PFTOptions
+    from tcsfm_torch.solver import pft
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    epochs, iters = 4, chip_smoke.ITERS
+    cfg = Config(iterations=iters)
+    depth_net, pose_net = build_models(
+        cfg, generator=torch.Generator().manual_seed(5))
+    chip_smoke.condition_like_trained(depth_net, torch)
+    batch = chip_smoke.pft_batch(torch, 2, 64, 96, seed=9, device=cuda)
+    opt = pft.PFTOptimizer(cfg, PFTOptions(epochs=epochs, num_source_imgs=2),
+                           depth_net, pose_net, mode=mode)
+    seen = []
+    real = gs.grid_sample_bwd
+
+    def recording(img, coords, g, grad_ch=()):
+        seen.append((img.shape[-1], tuple(grad_ch)))
+        return real(img, coords, g, grad_ch)
+
+    chip_smoke.zero_counts(gs)
+    gs.grid_sample_bwd = recording
+    try:
+        res = opt.optimize_window(batch)
+        torch.cuda.synchronize()
+    finally:
+        gs.grid_sample_bwd = real
+    counts = chip_smoke.read_counts(gs)
+    if mode == "encoder":
+        assert counts == chip_smoke.pft_expected_launches(epochs, iters)
+        assert seen.count((4, (3,))) == epochs - 1
+    else:
+        assert counts == (epochs * iters, (epochs - 1) * iters, 0)
+        assert seen.count((4, ())) == epochs - 1
+    assert res.losses.shape == (epochs,) and torch.isfinite(res.losses).all()
+    grads, fields, first = chip_smoke.pft_parity(torch, gs, pft, opt, batch,
+                                                 mode)
+    print(mode, grads, fields, first)
