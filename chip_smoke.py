@@ -55,7 +55,18 @@ Phases, each printing its elapsed seconds:
      drawn from the plain call's own spread, and a small call on the card
      against the same call on the CPU, with two witnesses that their gap
      is rounding (the first forward's mask pixels that differ, and the
-     CPU call against itself with its images one ulp up).
+     CPU call against itself with its images one ulp up);
+ 11. the sixth main path: the sequence CLIs, weights through a checkpoint:
+     phase 10's nets written with ``train.checkpoint.save_checkpoint`` and
+     read back bit for bit; ``evaluate_vo`` (``--model_dir``) over the
+     first 64 frames of the committed 1504-frame drive at 192x640 with
+     the kernel and with the plain sampler, held equal (the plain run
+     with its images one ulp up beside them), then one timed pass of the
+     evaluator the CLI builds over the whole drive (batch 8, 4
+     iterations) with windows/s, clocks, launches and peak memory;
+     ``run_sequential_pft`` with each refiner (adam, ba, gn, chain) at
+     192x640 with its launch counts and falling costs; and both CLIs card
+     vs CPU at 64x96, each with the CPU run's images one ulp up beside it.
 
 Phase 2 also holds the sampler's two backward kernels (d_coords only,
 and d_coords + d_img; d_coords bit for bit), its value+Jacobian kernel and
@@ -63,7 +74,9 @@ the decoder tail kernel against their plain versions.
 Prints the kernels' JSON line, then, as the last line,
 ``{"ok": true, "device": {...}}``. Any failed check raises and exits
 non-zero; a hang past the watchdog dumps a traceback and exits non-zero.
-Reads no data files: inputs and weights come from seeds.
+Inputs and weights come from seeds, apart from phase 11's drive, the
+repository's ``.flagship_data/drive1504_192x640/synthetic/
+sequence_data.npz``. Writes under ``build/sequence/``.
 """
 
 from __future__ import annotations
@@ -226,6 +239,24 @@ PFT_FIELDS = ("losses", "poses_opt", "disp_opt")
 PFT_SMALL = (2, 64, 96, 3)
 PFT_CPU_LOSS_TOL = 1e-4
 PFT_CPU_TOL = 0.1
+# phase "sequence": the committed 1504-frame drive at 192x640 through
+# evaluate_vo (batch 8, 4 iterations: 1503 pair windows), a 64-frame cut
+# of it with the kernel and with the plain sampler, run_sequential_pft's
+# four refiners on synthetic 192x640 sequences (window batch 4; adam 20
+# epochs in encoder mode, ba and gn at the CLI's 20 epochs, 10 frames;
+# chain 23 frames, two blocks of 12), and the two CLIs card vs CPU at 64x96
+SEQ_DRIVE, SEQ_DRIVE_FRAMES = ".flagship_data/drive1504_192x640", 1504
+SEQ_BATCH, SEQ_CUT, SEQ_WB = 8, 64, 4
+SEQ_FRAMES, SEQ_CHAIN_FRAMES, SEQ_CHAIN_BLOCK = 10, 23, 12
+# card vs CPU: two f32 runs of the pose chain agree where the CPU run
+# agrees with itself with its images one ulp up: the pose vectors and the
+# DNet scales are each held at SEQ_SPREAD_FACTOR x their own spread, at
+# least SEQ_TOL, at most SEQ_CAP (f32 does not resolve the chain past
+# ~2e-4 where a pixel crosses the valid mask's border, ROADMAP §3); the
+# printed errors are rounded to 3 decimals, so they are held at one unit
+# of it, SEQ_ERR_TOL
+SEQ_TOL, SEQ_SPREAD_FACTOR, SEQ_CAP = 1e-5, 4, 1e-3
+SEQ_ERR_TOL = 1e-3
 
 
 T0 = time.monotonic()
@@ -2167,6 +2198,345 @@ def phase_pft(torch, gs, cfg, build_models):
     return counts
 
 
+def seq_limit(spread: float) -> float:
+    return min(SEQ_CAP, max(SEQ_TOL, SEQ_SPREAD_FACTOR * spread))
+
+
+def quiet(fn, log_path):
+    """``fn()`` with its standard output written to ``log_path`` (the CLIs
+    print their JSON over many lines; this script's last two lines are
+    its own)."""
+    import io
+
+    buf = io.StringIO()
+    try:
+        with contextlib.redirect_stdout(buf):
+            return fn()
+    finally:
+        with open(log_path, "w") as f:
+            f.write(buf.getvalue())
+
+
+def write_sequence(path, seq, images) -> None:
+    """``seq`` with ``images`` as ``<path>/sequence_data.npz``, uncompressed,
+    in ``SequenceData.from_npz``'s keys."""
+    import os
+
+    import numpy as np
+
+    os.makedirs(path, exist_ok=True)
+    np.savez(os.path.join(path, "sequence_data.npz"), name=seq.name,
+             intrinsics=seq.intrinsics, gt_poses=seq.gt_poses,
+             vo_poses=seq.vo_poses, timestamps=seq.timestamps,
+             images=images)
+
+
+def preds_of(path):
+    """Saved VO predictions: pose vectors at the solver's scale (the saved
+    translations are x30) and the DNet scales."""
+    import numpy as np
+
+    d = np.load(path)
+    out = {}
+    for k in ("fwd_pose_vec", "inv_pose_vec"):
+        v = d[k].astype(np.float64)
+        v[:, :3] /= 30.0
+        out[k] = v
+    out["dnet_scale_factor"] = d["dnet_scale_factor"].astype(np.float64)
+    return out
+
+
+def preds_gap(a, b):
+    """(max |a - b| over the pose vectors, max relative gap over the DNet
+    scales): each is held at the limit its own spread sets, since the
+    median under a DNet scale moves by a whole ulp of depth where a pose
+    moves by far less."""
+    import numpy as np
+
+    gap = max(float(np.abs(a[k] - b[k]).max())
+              for k in ("fwd_pose_vec", "inv_pose_vec"))
+    sa, sb = a["dnet_scale_factor"], b["dnet_scale_factor"]
+    with np.errstate(invalid="ignore", divide="ignore"):
+        scale = np.where(sa == sb, 0.0, np.abs(sa - sb) / np.abs(sb))
+    return gap, float(scale.max())
+
+
+def within_spread(err, spread) -> bool:
+    """Each of ``preds_gap``'s two gaps within the limit of its spread."""
+    return all(e <= seq_limit(s) for e, s in zip(err, spread))
+
+
+def gaps_text(err, spread) -> str:
+    return "; ".join(f"{what} {e:.3e} (spread {s:.3e}, limit "
+                     f"{seq_limit(s):.3e})" for what, e, s in
+                     zip(("pose vectors", "DNet scales"), err, spread))
+
+
+def seq_refiner_launches(refiner, iters, windows, frames):
+    """(value, d_coords only, d_coords + d_img, value+Jacobian) launches of
+    one run_sequential_pft call at the CLI's 20 epochs, ``iters`` coupled
+    iterations: per window batch of ``SEQ_WB``, PFT's per call (phase
+    "pft"), and the coupled forward's ``iters - 1`` value launches before
+    ``window_ba`` or two ``gauss_newton_pose`` calls of 10 LM iterations
+    (phase "refiners"); for chain, the coupled forward of every chunk of
+    ``SEQ_WB`` windows and ``chain_ba`` of every block."""
+    calls = -(-windows // SEQ_WB)
+    if refiner == "adam":
+        return tuple(calls * n
+                     for n in pft_expected_launches(20, iters)) + (0,)
+    if refiner == "chain":
+        # blocks overlap by one frame (no short tail at these sizes)
+        blocks = -(-(frames - 1) // (SEQ_CHAIN_BLOCK - 1))
+        value, jac = REFINER_LAUNCHES["chain"]
+        return (calls * (iters - 1) + blocks * value, 0, 0, blocks * jac)
+    value, jac = REFINER_LAUNCHES[refiner]
+    per = 1 if refiner == "ba" else 2
+    return (calls * (iters - 1 + per * value), 0, 0, calls * per * jac)
+
+
+def phase_sequence(torch, gs, cfg, build_models):
+    """The sixth main path: the sequence CLIs on the card, weights through
+    a checkpoint. Returns the launches (value, d_coords, d_img,
+    value+Jacobian) of the VO pass over the drive and of each refiner's
+    run_sequential_pft call."""
+    import os
+    from pathlib import Path
+
+    import numpy as np
+
+    from tcsfm_torch.cli import evaluate_vo
+    from tcsfm_torch.cli import run_sequential_pft as seq_pft
+    from tcsfm_torch.cli.common import load_nets
+    from tcsfm_torch.data.dataset import SequenceData
+    from tcsfm_torch.data.synthetic import make_synthetic_sequence
+    from tcsfm_torch.eval.vo import VOEvaluator
+    from tcsfm_torch.train.checkpoint import load_checkpoint, save_checkpoint
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    root = Path(__file__).resolve().parent
+    work = root / "build" / "sequence"
+    model_dir = str(work / "model")
+    os.makedirs(work, exist_ok=True)
+
+    def counts():
+        return read_counts(gs) + (gs.LAUNCHES_FWD_GRADS,)
+
+    # 1. phase "pft"'s trained-like nets through a checkpoint
+    nets = build_models(cfg, device="cuda",
+                        generator=torch.Generator().manual_seed(0))
+    condition_like_trained(nets[0], torch)
+    save_checkpoint(model_dir, nets, epoch=1, best_val_loss=1.0, cfg=cfg,
+                    is_best=True)
+    fresh = build_models(cfg, device="cuda",
+                         generator=torch.Generator().manual_seed(1))
+    load_checkpoint(model_dir, fresh, load_best=True)
+    for a, b in zip(nets, fresh):
+        sa, sb = a.state_dict(), b.state_dict()
+        check(sa.keys() == sb.keys() and all(torch.equal(sa[k], sb[k])
+                                             for k in sa),
+              "the checkpoint did not give the nets back bit for bit")
+    size = os.path.getsize(os.path.join(model_dir, "checkpoint.msgpack"))
+    say("sequence", f"checkpoint {size} B written and read back into fresh "
+        f"nets: every tensor bit-equal")
+    depth_net, pose_net = load_nets(model_dir, "cuda")
+
+    # 2. the 64-frame cut: kernel vs plain sampler, the plain run's spread
+    drive = root / SEQ_DRIVE
+    t = time.monotonic()
+    seq = SequenceData.from_npz(str(drive / "synthetic" / "sequence_data.npz"))
+    load_s = time.monotonic() - t
+    check(seq.images.dtype == np.uint8 and len(seq) == SEQ_DRIVE_FRAMES,
+          f"the drive: {len(seq)} frames of {seq.images.dtype}")
+    windows = len(seq) - 1
+    cut = SequenceData(name="cut", intrinsics=seq.intrinsics[:SEQ_CUT],
+                       gt_poses=seq.gt_poses[:SEQ_CUT],
+                       vo_poses=seq.vo_poses[:SEQ_CUT],
+                       timestamps=seq.timestamps[:SEQ_CUT])
+    frames = seq.images[:SEQ_CUT]
+    write_sequence(work / "data" / "cut", cut, frames)
+    ulp = np.nextafter(frames.astype(np.float32) / np.float32(255.0),
+                       np.float32(2.0))
+    write_sequence(work / "data" / "cut_ulp", cut, ulp)
+
+    def vo_args(seqs, preds, *extra):
+        return evaluate_vo.parse_args(
+            ["--model_dir", model_dir, "--batch", str(SEQ_BATCH),
+             "--iterations", str(ITERS), "--save_preds", str(preds)]
+            + (["--data_dir", str(work / "data"), "--seqs", seqs]
+               if seqs else ["--synthetic"]) + list(extra))
+
+    runs = {}
+    for name, seqs, sampler in (("kernel", "cut", gs.grid_sample),
+                                ("plain", "cut", gs.grid_sample_plain),
+                                ("plain_ulp", "cut_ulp",
+                                 gs.grid_sample_plain)):
+        preds = work / f"preds_{name}"
+        quiet(lambda: evaluate_vo.run(vo_args(seqs, preds), depth_net,
+                                      pose_net, "cuda", sampler=sampler),
+              work / f"vo_{name}.log")
+        runs[name] = preds_of(preds / f"{seqs}_preds.npz")
+    # the value kernel is bit-equal to the plain sampler (phase "kernels"),
+    # so the two runs are too; one ulp on the images moves the pose chain
+    # by ~1e-3 at 192x640, so no limit short of equality tells them apart
+    err = preds_gap(runs["kernel"], runs["plain"])
+    spread = preds_gap(runs["plain_ulp"], runs["plain"])
+    say("sequence", f"evaluate_vo on the drive's first {SEQ_CUT} frames, "
+        f"kernel vs plain sampler: pose vectors {err[0]:.3e}, DNet scales "
+        f"{err[1]:.3e} apart (equality required; the plain run with its "
+        f"images one ulp up: {spread[0]:.3e}, {spread[1]:.3e})")
+    check(err == (0.0, 0.0), f"evaluate_vo kernel vs plain: pose vectors "
+          f"{err[0]}, DNet scales {err[1]} apart, not equal")
+
+    # 3. one timed pass over the whole drive, loaded above, by the
+    # evaluator the CLI builds from its arguments (the cut warmed its
+    # shapes up)
+    args = evaluate_vo.parse_args(
+        ["--model_dir", model_dir, "--data_dir", str(drive), "--seqs",
+         "synthetic", "--batch", str(SEQ_BATCH), "--iterations", str(ITERS)])
+    ev = VOEvaluator(evaluate_vo.config_of(args), depth_net, pose_net,
+                     device="cuda")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts(gs)
+
+    def whole():
+        t0 = time.monotonic()
+        out = quiet(lambda: ev.run_sequence(seq, batch_size=args.batch),
+                    work / "vo_drive.log")
+        torch.cuda.synchronize()
+        return out, time.monotonic() - t0
+
+    (errs, wall), clocks = with_clocks(whole)
+    vo_counts = counts()
+    del seq
+    want = (-(-windows // SEQ_BATCH) * (ITERS - 1), 0, 0, 0)
+    check(vo_counts == want, f"evaluate_vo launches {vo_counts}, expected "
+          f"{want}")
+    check(all(np.isfinite(errs[k][:2]).all() for k in
+              ("errors_unscaled", "errors_dnet", "errors_gt_scaled")),
+          f"evaluate_vo errors not finite: "
+          f"{[errs[k] for k in errs if k.startswith('errors')]}")
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60).stdout.strip().splitlines()[0]
+    say("sequence", f"{card}: evaluate_vo over the drive, {windows} pair "
+        f"windows at 192x640, batch {SEQ_BATCH}, {ITERS} iterations, f32: "
+        f"one pass {wall:.3f} s -> {windows / wall:.2f} windows/s (the "
+        f"drive's load before it, host: {load_s:.3f} s); "
+        f"clocks {clocks}; launches (value, d_coords, d_img, "
+        f"value+Jacobian) {vo_counts}; peak memory "
+        f"{torch.cuda.max_memory_allocated() / 2**20:.1f} MiB; errors "
+        + ", ".join(f"{k} {errs[k]}" for k in
+                    ("errors_unscaled", "errors_dnet", "errors_gt_scaled"))
+        + f", gt_scale {float(errs['gt_scale']):.6f}")
+
+    # 4. run_sequential_pft, each refiner once, on the card
+    refine_counts = {}
+    for refiner, frames_n, extra in (
+            ("adam", SEQ_FRAMES, ["--mode", "encoder", "--epochs", "20"]),
+            ("ba", SEQ_FRAMES, []), ("gn", SEQ_FRAMES, []),
+            ("chain", SEQ_CHAIN_FRAMES,
+             ["--chain_block", str(SEQ_CHAIN_BLOCK)])):
+        argv = (["--model_dir", model_dir, "--synthetic", "--synthetic_size",
+                 str(H), str(W), "--synthetic_frames", str(frames_n),
+                 "--window_batch", str(SEQ_WB), "--refiner", refiner,
+                 "--out_dir", str(work / f"pft_{refiner}")] + extra)
+        zero_counts(gs)
+        res = quiet(lambda: seq_pft.main(argv), work / f"pft_{refiner}.log")
+        torch.cuda.synchronize()
+        got = counts()
+        want = seq_refiner_launches(refiner, ITERS, frames_n - 2, frames_n)
+        check(got == want, f"run_sequential_pft --refiner {refiner}: "
+              f"launches {got}, expected {want}")
+        r = res["synthetic"]
+        rate = r.get("windows_per_s", r.get("edges_per_s"))
+        check(np.isfinite(r["errors_optimized"][:2]).all()
+              and np.isfinite(r["errors_initial"][:2]).all(),
+              f"{refiner}: errors not finite: {r}")
+        if refiner != "adam":
+            check(r["pft_loss_last"] < r["pft_loss_first"], f"{refiner}: the "
+                  f"cost did not fall: {r['pft_loss_first']} -> "
+                  f"{r['pft_loss_last']}")
+        refine_counts[refiner] = got
+        say("sequence", f"run_sequential_pft --refiner {refiner}, "
+            f"{frames_n} frames at {H}x{W}: "
+            f"{'edges' if refiner == 'chain' else 'windows'}/s {rate} "
+            f"(wall {r['wall_s']} s); loss {r['pft_loss_first']:.6f} -> "
+            f"{r['pft_loss_last']:.6f}; errors initial "
+            f"{r['errors_initial']}, optimized {r['errors_optimized']}; "
+            f"launches (value, d_coords, d_img, value+Jacobian) {got} "
+            f"(expected {want})")
+
+    # 5. card vs CPU at 64x96, each with the CPU run's images one ulp up
+    cpu_nets = load_nets(model_dir, "cpu")
+    syn = make_synthetic_sequence(24, (64, 96), seed=11)
+    write_sequence(work / "data" / "syn_ulp", syn,
+                   np.nextafter(syn.images, np.float32(2.0)))
+    vo_errs, vo_preds = {}, {}
+    for name, seqs, device, pair in (
+            ("card", "", "cuda", (depth_net, pose_net)),
+            ("cpu", "", "cpu", cpu_nets),
+            ("cpu_ulp", "syn_ulp", "cpu", cpu_nets)):
+        preds = work / f"preds_syn_{name}"
+        vo_errs[name] = quiet(lambda: evaluate_vo.run(
+            vo_args(seqs, preds), *pair, device), work / f"vo_syn_{name}.log")
+        vo_preds[name] = preds_of(preds / f"{seqs or 'synthetic'}_preds.npz")
+    err = preds_gap(vo_preds["card"], vo_preds["cpu"])
+    spread = preds_gap(vo_preds["cpu_ulp"], vo_preds["cpu"])
+    card_errs = vo_errs["card"]["synthetic"]
+    cpu_errs = vo_errs["cpu"]["synthetic"]
+    err_gap = max(abs(a - b) for k in ("errors_unscaled", "errors_dnet",
+                                       "errors_gt_scaled")
+                  for a, b in zip(card_errs[k][:2], cpu_errs[k][:2]))
+    say("sequence", f"evaluate_vo --synthetic (24 frames, 64x96, {ITERS} "
+        f"iterations) card vs CPU, against the CPU run with its images one "
+        f"ulp up: {gaps_text(err, spread)}; errors {err_gap:.3e} apart "
+        f"(limit {SEQ_ERR_TOL})")
+    check(within_spread(err, spread) and err_gap <= SEQ_ERR_TOL + 1e-9,
+          f"evaluate_vo card vs CPU: {gaps_text(err, spread)}, errors "
+          f"{err_gap}")
+
+    gn_runs = {}
+    seq16 = make_synthetic_sequence(SEQ_FRAMES, (64, 96), seed=13)
+    write_sequence(work / "data" / "gn_ulp", seq16,
+                   np.nextafter(seq16.images, np.float32(2.0)))
+    for name, device, src in (("card", "cuda", ["--synthetic"]),
+                              ("cpu", "cpu", ["--synthetic"]),
+                              ("cpu_ulp", "cpu",
+                               ["--data_dir", str(work / "data"), "--seqs",
+                                "gn_ulp"])):
+        out_dir = work / f"gn_{name}"
+        argv = ["--model_dir", model_dir, "--refiner", "gn",
+                "--synthetic_frames", str(SEQ_FRAMES), "--window_batch",
+                str(SEQ_WB), "--out_dir", str(out_dir)] + src
+        pair = (depth_net, pose_net) if device == "cuda" else cpu_nets
+        res = quiet(lambda: seq_pft.run(seq_pft.parse_args(argv), *pair,
+                                        device), work / f"gn_{name}.log")
+        key = "synthetic" if name != "cpu_ulp" else "gn_ulp"
+        gn_runs[name] = (res[key], np.load(out_dir / f"{key}_pft.npz"))
+
+    def gap(a, b):
+        return max(float(np.abs(a[1][k].astype(np.float64) - b[1][k]).max())
+                   / max(float(np.abs(b[1][k]).max()), 1e-30)
+                   for k in ("pose_init", "pose_opt"))
+
+    err, spread = gap(gn_runs["card"], gn_runs["cpu"]), gap(
+        gn_runs["cpu_ulp"], gn_runs["cpu"])
+    err_gap = max(abs(a - b) for k in ("errors_initial", "errors_optimized")
+                  for a, b in zip(gn_runs["card"][0][k][:2],
+                                  gn_runs["cpu"][0][k][:2]))
+    say("sequence", f"run_sequential_pft --synthetic --refiner gn "
+        f"({SEQ_FRAMES} frames, 64x96) card vs CPU: pose_init and pose_opt "
+        f"{err:.3e} of their largest apart (the CPU run with its images one "
+        f"ulp up: {spread:.3e}, limit {seq_limit(spread):.3e}); errors "
+        f"{err_gap:.3e} apart (limit {SEQ_ERR_TOL})")
+    check(err <= seq_limit(spread) and err_gap <= SEQ_ERR_TOL + 1e-9,
+          f"run_sequential_pft gn card vs CPU: {err}, errors {err_gap}")
+    return vo_counts, refine_counts
+
+
 def med_config():
     """The main path's configuration: med res, B=6, 4 iterations."""
     from tcsfm_torch.config import Config
@@ -2295,12 +2665,18 @@ def main() -> int:
     t = time.monotonic()
     pft_counts = phase_pft(torch, gs, cfg, build_models)
     say("pft", f"phase took {time.monotonic() - t:.2f} s")
+    t = time.monotonic()
+    vo_counts, seq_counts = phase_sequence(torch, gs, cfg, build_models)
+    say("sequence", f"phase took {time.monotonic() - t:.2f} s")
 
     fwd_src = "tcsfm_torch/ops/csrc/grid_sample.cu"
     bwd_src = "tcsfm_torch/ops/csrc/grid_sample_bwd.cu"
     no_refine = {k: 0 for k in refine_counts}
     # launches per forward, training step, refiner call, tail-route
-    # forward, PFT call
+    # forward, PFT call; then per VO pass over the drive and per
+    # run_sequential_pft call by refiner
+    seq_index = {"grid_sample_fwd": 0, "grid_sample_bwd_coords": 1,
+                 "grid_sample_bwd_img": 2, "grid_sample_with_grads": 3}
     per_path = {
         "grid_sample_fwd": (launches, step_counts[0],
                             {k: v[0] for k, v in refine_counts.items()},
@@ -2325,15 +2701,22 @@ def main() -> int:
             ("decoder_tail", "tcsfm_torch/ops/csrc/decoder_tail.cu",
              "experiments/decoder_tail.py:200", tail_row)):
         fwd, step, refine, tail_fwd, pft_call = per_path[name]
+        i = seq_index.get(name)
+        vo_pass = 0 if i is None else vo_counts[i]
+        seq_calls = {r: 0 if i is None else c[i]
+                     for r, c in seq_counts.items()}
         kernels.append(dict(name=name, route="cuda", source=source,
                             replaces=replaces,
                             launches=fwd + step + sum(refine.values())
-                            + tail_fwd + pft_call,
+                            + tail_fwd + pft_call + vo_pass
+                            + sum(seq_calls.values()),
                             launches_per_forward=fwd,
                             launches_per_train_step=step,
                             launches_per_refiner_call=refine,
                             launches_per_tail_forward=tail_fwd,
-                            launches_per_pft_call=pft_call, **row))
+                            launches_per_pft_call=pft_call,
+                            launches_per_vo_sequence=vo_pass,
+                            launches_per_sequential_pft=seq_calls, **row))
     print(json.dumps({"kernels": kernels}), flush=True)
     faulthandler.cancel_dump_traceback_later()
     print(json.dumps({"ok": True, "device": {

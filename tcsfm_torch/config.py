@@ -6,7 +6,11 @@ the port uses, with the same names and defaults, so ``Config.from_json``
 reads what the JAX package's ``Config.to_json`` writes (unknown keys are
 skipped), and ``PFTOptions`` with the fields PFT reads.
 ``flow_type='classical'`` (8-channel pose input) is not ported yet:
-``from_json`` refuses it.
+``from_json`` refuses it. ``to_json`` adds ``"compute_dtype": "float32"``
+(the port computes in float32 with TF32 off), so the JAX package reads a
+file the port wrote as the same run; ``json_notes`` names what the port
+does not take from a file the JAX package wrote (another compute dtype,
+its TPU and data fields), and the CLIs print it.
 ``l_ssim=False`` is refused by both constructors: the loss stack's diff
 image then keeps its 3 channels, which the JAX package's loss cannot take
 either. The port does not import ``tcsfm``: its ``__init__`` pulls in JAX.
@@ -17,7 +21,11 @@ from __future__ import annotations
 import dataclasses
 import json
 from dataclasses import dataclass
-from typing import Tuple
+from typing import List, Tuple
+
+# the port's compute dtype, written into every config file it saves (the
+# JAX package's default is bfloat16, tcsfm/config.py:80)
+COMPUTE_DTYPE = "float32"
 
 # Image resolutions of the reference preprocessing (tcsfm/config.py:17-22).
 RESOLUTIONS = {
@@ -83,7 +91,8 @@ class Config:
         return self.img_per_sample - 1
 
     def to_json(self) -> str:
-        return json.dumps(dataclasses.asdict(self), indent=2, sort_keys=True)
+        d = dict(dataclasses.asdict(self), compute_dtype=COMPUTE_DTYPE)
+        return json.dumps(d, indent=2, sort_keys=True)
 
     @classmethod
     def from_json(cls, s: str) -> "Config":
@@ -93,6 +102,32 @@ class Config:
                 f"flow_type={d['flow_type']!r} is not ported yet")
         names = {f.name for f in dataclasses.fields(cls)}
         return cls(**{k: v for k, v in d.items() if k in names})
+
+    def save(self, path: str) -> None:
+        with open(path, "w") as f:
+            f.write(self.to_json())
+
+    @classmethod
+    def load(cls, path: str) -> "Config":
+        with open(path) as f:
+            return cls.from_json(f.read())
+
+
+def json_notes(s: str) -> List[str]:
+    """Lines naming what the port does not take from the config JSON ``s``:
+    the compute dtype it asks for beside the port's, and its keys that
+    ``Config`` has no field for (the JAX package's TPU sampler, mesh, data
+    and checkpoint settings)."""
+    d = json.loads(s)
+    names = {f.name for f in dataclasses.fields(Config)}
+    asked = d.get("compute_dtype", "bfloat16")
+    notes = [f"compute dtype: the config asks {asked}, the port computes "
+             f"in {COMPUTE_DTYPE} (TF32 off)"]
+    unread = sorted(set(d) - names - {"compute_dtype", "flow_type"})
+    if unread:
+        notes.append("config keys the port does not read: "
+                     + ", ".join(unread))
+    return notes
 
 
 @dataclass

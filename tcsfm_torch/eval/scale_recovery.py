@@ -73,6 +73,16 @@ def masked_median(values: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
     return ordered[k]
 
 
+def _ground_heights(depth: torch.Tensor, K: torch.Tensor):
+    """Per-pixel camera heights [B, H, W] and the ground mask [B, H, W]."""
+    if depth.dim() == 4:
+        depth = depth[..., 0]
+    b, h, w = depth.shape
+    pts = backproject(depth, K).reshape(b, 3, h, w).permute(0, 2, 3, 1)
+    normals = surface_normals(pts)
+    return (pts * normals).sum(-1).abs(), ground_mask(pts, normals)
+
+
 def scale_recovery(depth: torch.Tensor, K: torch.Tensor,
                    real_cam_height: float) -> torch.Tensor:
     """Metric scale factor from ground-plane geometry.
@@ -84,11 +94,20 @@ def scale_recovery(depth: torch.Tensor, K: torch.Tensor,
 
     Returns a 0-d tensor; the median is taken over the whole batch.
     """
-    if depth.dim() == 4:
-        depth = depth[..., 0]
-    b, h, w = depth.shape
-    pts = backproject(depth, K).reshape(b, 3, h, w).permute(0, 2, 3, 1)
-    normals = surface_normals(pts)
-    gmask = ground_mask(pts, normals)
-    heights = (pts * normals).sum(-1).abs()
+    heights, gmask = _ground_heights(depth, K)
     return real_cam_height / masked_median(heights, gmask)
+
+
+def scale_recovery_per_sample(depth: torch.Tensor, K: torch.Tensor,
+                              real_cam_height: float) -> torch.Tensor:
+    """``scale_recovery`` of each sample on its own, [B]: the JAX
+    package's ``vmap`` of it (``tcsfm/eval/vo.py``), one sort for the
+    batch."""
+    heights, gmask = _ground_heights(depth, K)
+    b = heights.shape[0]
+    flat_m = gmask.reshape(b, -1)
+    ordered = torch.sort(torch.where(flat_m, heights.reshape(b, -1),
+                                     torch.full_like(heights.reshape(b, -1),
+                                                     math.inf)), dim=1).values
+    k = ((flat_m.sum(1) - 1) // 2).clamp_min(0)
+    return real_cam_height / ordered.gather(1, k[:, None])[:, 0]

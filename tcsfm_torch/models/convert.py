@@ -1,4 +1,4 @@
-"""JAX-package parameters → the port's ``state_dict``s.
+"""JAX-package parameters ↔ the port's ``state_dict``s.
 
 The inverse of ``tcsfm/models/torch_import.py:38-113``, kept as the port's
 own copy (it imports nothing of ``tcsfm``). The input is the JAX package's
@@ -10,7 +10,9 @@ OIHW; BatchNorm ``scale``/``bias``/``mean``/``var`` become
 GroupNorm becomes ``conv{i}.1``. The keys are the reference checkpoint's,
 so a converted or reference state dict loads with ``load_state_dict``.
 ``grads_from_flax`` maps a gradient tree the same way, so gradients
-compare key by key.
+compare key by key. ``to_flax`` is the inverse of ``from_flax``: the port's
+``state_dict``s as the Flax trees, numpy float32 leaves, which is what the
+checkpoints of both packages hold (``train/checkpoint.py``).
 """
 
 from __future__ import annotations
@@ -119,3 +121,79 @@ def grads_from_flax(grads: Mapping) -> Dict[str, StateDict]:
     port's ``named_parameters()``, laid out as the port's parameters are."""
     return {"depth": depth_state_dict(grads["depth"], None),
             "pose": pose_state_dict(grads["pose"])}
+
+
+def _np(t: torch.Tensor) -> np.ndarray:
+    return t.detach().to("cpu", torch.float32).numpy().copy()
+
+
+def _conv_k(w: torch.Tensor) -> np.ndarray:
+    """torch OIHW → flax HWIO."""
+    return np.ascontiguousarray(_np(w).transpose(2, 3, 1, 0))
+
+
+def to_flax(depth_sd: Mapping[str, torch.Tensor],
+            pose_sd: Mapping[str, torch.Tensor]
+            ) -> Tuple[Dict, Dict]:
+    """(depth ``state_dict``, pose ``state_dict``) → (``{"depth", "pose"}``
+    params, depth batch_stats), the trees of ``create_train_state`` with
+    numpy float32 leaves. ``from_flax`` of the result gives every parameter
+    and running statistic back bit for bit; ``num_batches_tracked``, which
+    Flax does not keep (and the port's BatchNorm, with its momentum set,
+    does not read), comes back as 0."""
+    sd = depth_sd
+    enc: Dict = {
+        "conv1": {"kernel": _conv_k(sd["encoder.encoder.conv1.weight"])}}
+    est: Dict = {}
+
+    def bn(prefix: str):
+        return ({"bias": _np(sd[f"{prefix}.bias"]),
+                 "scale": _np(sd[f"{prefix}.weight"])},
+                {"mean": _np(sd[f"{prefix}.running_mean"]),
+                 "var": _np(sd[f"{prefix}.running_var"])})
+
+    enc["bn1"], est["bn1"] = bn("encoder.encoder.bn1")
+    for layer in range(1, 5):
+        for block in range(2):
+            t = f"encoder.encoder.layer{layer}.{block}"
+            f: Dict = {"Conv_0": {"kernel": _conv_k(sd[f"{t}.conv1.weight"])},
+                       "Conv_1": {"kernel": _conv_k(sd[f"{t}.conv2.weight"])}}
+            s: Dict = {}
+            f["BatchNorm_0"], s["BatchNorm_0"] = bn(f"{t}.bn1")
+            f["BatchNorm_1"], s["BatchNorm_1"] = bn(f"{t}.bn2")
+            if f"{t}.downsample.0.weight" in sd:
+                f["Conv_2"] = {
+                    "kernel": _conv_k(sd[f"{t}.downsample.0.weight"])}
+                f["BatchNorm_2"], s["BatchNorm_2"] = bn(f"{t}.downsample.1")
+            enc[f"layer{layer}_{block}"], est[f"layer{layer}_{block}"] = f, s
+    depth: Dict = {"encoder": enc}
+
+    def refl_conv(flax_name: str, torch_prefix: str) -> None:
+        depth[flax_name] = {"Conv_0": {
+            "bias": _np(sd[f"{torch_prefix}.conv.bias"]),
+            "kernel": _conv_k(sd[f"{torch_prefix}.conv.weight"])}}
+
+    i = 0
+    while f"depth_upconvs.{i}.1.conv.weight" in sd:
+        refl_conv(f"upconv{i}", f"depth_upconvs.{i}.1")
+        refl_conv(f"iconv{i}", f"iconvs.{i}.0")
+        i += 1
+    i = 0
+    while f"feature_convs.{i}.0.conv.weight" in sd:
+        refl_conv(f"feature_conv{i}", f"feature_convs.{i}.0")
+        refl_conv(f"disp_head{i}", f"predict_disps.{i}.0")
+        i += 1
+
+    pose: Dict = {}
+    i = 1
+    while f"conv{i}.0.weight" in pose_sd:
+        pose[f"conv{i}"] = {
+            "GroupNorm16_0": {"GroupNorm_0": {
+                "bias": _np(pose_sd[f"conv{i}.1.bias"]),
+                "scale": _np(pose_sd[f"conv{i}.1.weight"])}},
+            "WSConv_0": {"bias": _np(pose_sd[f"conv{i}.0.bias"]),
+                         "kernel": _conv_k(pose_sd[f"conv{i}.0.weight"])}}
+        i += 1
+    pose["pose_pred"] = {"bias": _np(pose_sd["pose_pred.bias"]),
+                         "kernel": _conv_k(pose_sd["pose_pred.weight"])}
+    return {"depth": depth, "pose": pose}, {"encoder": est}

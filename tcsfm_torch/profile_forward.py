@@ -1,8 +1,8 @@
-"""Where the coupled forward's, the training step's, or a refiner's time
-goes on the card.
+"""Where the coupled forward's, the training step's, a refiner's, PFT's or
+the VO loop's time goes on the card.
 
     python -m tcsfm_torch.profile_forward [--iters 5] [--tf32]
-        [--tail | --train | --refiners | --pft]
+        [--tail | --train | --refiners | --pft | --vo]
 
 Runs the main path (med res 192x640, B=6, S=2, 4 iterations, f32, seeded
 random weights) and prints: the forward's median wall time, the device
@@ -50,6 +50,15 @@ the matmuls (the einsum reductions and the geometry's 3x3 products), the
 LU solves, and the rest (elementwise, copies, reductions); the share of
 the timeline that kernels fill; then the profiler's top kernels of one
 ``window_ba(iters=10)`` call.
+
+``--vo`` splits ``evaluate_vo``'s loop (``eval.vo.VOEvaluator``, batch 8
+pair windows at 192x640, 4 iterations, f32) on the first 65 frames of
+the committed drive (``.flagship_data/drive1504_192x640``; run from the
+repository root): the host's time to assemble a batch (the loader alone,
+no card), the wall time per batch of ``run_sequence`` and the share of it
+the card's kernels fill (the profiler), and the device time of each piece
+of one batch run alone (CUDA events): the depth net on 16 images, the
+coupled solver (4 pose-net passes, 3 warps), the per-sample DNet scale.
 Needs the card.
 """
 
@@ -359,6 +368,66 @@ def refiners_split(args) -> None:
     _top_kernels(call(10), 1, "window_ba call")
 
 
+def vo_split(args) -> None:
+    from tcsfm_torch.data.dataset import SequenceData, SfMWindowDataset
+    from tcsfm_torch.data.loader import BatchLoader
+    from tcsfm_torch.data.transforms import WindowTransform
+    from tcsfm_torch.eval.scale_recovery import scale_recovery_per_sample
+    from tcsfm_torch.eval.vo import METRIC_SCALE, VOEvaluator
+    from tcsfm_torch.utils.helpers import to_device
+
+    frames, batch = 65, 8
+    cfg = Config(iterations=4)
+    drive = SequenceData.from_npz(
+        ".flagship_data/drive1504_192x640/synthetic/sequence_data.npz")
+    seq = SequenceData(name="cut", intrinsics=drive.intrinsics[:frames],
+                       gt_poses=drive.gt_poses[:frames],
+                       vo_poses=drive.vo_poses[:frames],
+                       timestamps=drive.timestamps[:frames],
+                       images=drive.images[:frames])
+    del drive
+    depth_net, pose_net = build_models(cfg)
+    ev = VOEvaluator(cfg, depth_net, pose_net)
+    ds = SfMWindowDataset([seq], seq_len=2, transform=WindowTransform(
+        jitter=False, flip_prob=None))
+    t = time.perf_counter()
+    batches = list(BatchLoader(ds, batch, shuffle=False, drop_last=False,
+                               prefetch=0))
+    host_ms = (time.perf_counter() - t) * 1e3 / len(batches)
+    ev.run_sequence(seq, batch, verbose=False)               # warm-up
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    ev.run_sequence(seq, batch, verbose=False)
+    wall_ms = (time.perf_counter() - t) * 1e3 / len(batches)
+    print(f"{torch.cuda.get_device_name(0)}; evaluate_vo loop, {frames - 1} "
+          f"windows in {len(batches)} batches of {batch} at "
+          f"{cfg.image_size[0]}x{cfg.image_size[1]}, {cfg.iterations} "
+          f"iterations: {wall_ms:.3f} ms wall a batch; the loader alone "
+          f"{host_ms:.3f} ms a batch (host)")
+
+    x = to_device(batches[0], ("target_img", "source_imgs", "intrinsics"),
+                  torch.device("cuda"))
+    tgt, src, K = x["target_img"], x["source_imgs"], x["intrinsics"]
+    imgs = torch.cat([tgt, src[0]])
+    with torch.no_grad():
+        depth = disp_to_depth(depth_net(imgs)[0], cfg.min_depth,
+                              cfg.max_depth)[1]
+        depths = depth.reshape((2, batch) + depth.shape[1:])
+        pieces = {
+            "depth net": lambda: depth_net(imgs),
+            "coupled solver": lambda: solve_pose_iteratively(
+                cfg.iterations, depths, pose_net, tgt, src, K),
+            "DNet scale": lambda: scale_recovery_per_sample(
+                METRIC_SCALE * depths[0], K, cfg.camera_height),
+            "whole batch": lambda: ev.infer(tgt, src, K),
+        }
+        for name, fn in pieces.items():
+            print(f"  {name:<15} {_median_event_ms(fn, args.iters):9.3f} "
+                  f"ms device (CUDA events, median of {args.iters})")
+    _top_kernels(lambda: ev.run_sequence(seq, batch, verbose=False), 1,
+                 "pass")
+
+
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--iters", type=int, default=5)
@@ -371,6 +440,8 @@ def main(argv=None) -> None:
                     help="split one LM iteration of window_ba instead")
     ap.add_argument("--pft", action="store_true",
                     help="split one PFT call (encoder mode) instead")
+    ap.add_argument("--vo", action="store_true",
+                    help="split evaluate_vo's loop instead")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile_forward needs an NVIDIA card")
@@ -384,6 +455,9 @@ def main(argv=None) -> None:
         return
     if args.pft:
         pft_split(args)
+        return
+    if args.vo:
+        vo_split(args)
         return
 
     cfg = Config(iterations=4, minibatch=6)

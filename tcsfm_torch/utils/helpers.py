@@ -4,6 +4,9 @@ port's entry points."""
 
 from __future__ import annotations
 
+from typing import Dict
+
+import numpy as np
 import torch
 
 
@@ -48,3 +51,15 @@ def resolve_device(device=None) -> torch.device:
         raise RuntimeError("no CUDA device is available; pass device='cpu' "
                            "to run the port on the CPU")
     return device
+
+
+def to_device(batch: Dict[str, np.ndarray], keys, device: torch.device,
+              dtype: torch.dtype = torch.float32) -> Dict[str, torch.Tensor]:
+    """``batch[k]`` for ``k`` in ``keys`` on ``device``; to a card through
+    pinned memory without waiting for the copy."""
+    device, out = torch.device(device), {}
+    for k in keys:
+        t = torch.from_numpy(np.ascontiguousarray(batch[k])).to(dtype)
+        out[k] = (t.pin_memory().to(device, non_blocking=True)
+                  if device.type == "cuda" else t)
+    return out

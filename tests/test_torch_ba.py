@@ -37,6 +37,7 @@ from tcsfm.solver import gauss_newton as jgn
 from tcsfm_torch.ops import grid_sample as gs
 from tcsfm_torch.solver import ba as tba
 from tcsfm_torch.solver import gauss_newton as tgn
+from test_torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 POSE_ATOL = 1e-6
 DEPTH_REL = 5e-5

@@ -29,6 +29,7 @@ from tcsfm_torch.ops.grid_sample import grid_sample_plain
 from tcsfm_torch.solver import ba as tba
 from test_torch_ba import (COST_RTOL, DEPTH_REL, POSE_ATOL, _costs, _jax,
                            _np)
+from test_torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 
 def test_block_tridiag_solve_matches_dense_and_jax():

@@ -41,6 +41,7 @@ from tcsfm_torch.models.depth import DepthNet
 from tcsfm_torch.models.pose import PoseNet
 from tcsfm_torch.ops import grid_sample as gs
 from tcsfm_torch.solver import coupled
+from test_torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 B, S, H, W, ITERS = 2, 2, 64, 96, 4
 ATOL = 1e-5

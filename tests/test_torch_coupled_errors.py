@@ -59,6 +59,7 @@ from tcsfm_torch.ops import grid_sample as gs
 from tcsfm_torch.solver import coupled
 from tcsfm_torch.utils.helpers import disp_to_depth
 from test_torch_coupled import B, H, S, W, _inputs, _same_depths
+from test_torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 # limits by field (see the docstring): f32, and float64 for every field
 TOL_F64 = 1e-5

@@ -511,3 +511,95 @@ def test_pft_on_card(cuda, mode):
     grads, fields, first = chip_smoke.pft_parity(torch, gs, pft, opt, batch,
                                                  mode)
     print(mode, grads, fields, first)
+
+
+def _card_model_dir(tmp_path, seed):
+    """A checkpoint of seeded, trained-like nets (4 iterations) in
+    ``tmp_path``, written by the port."""
+    import chip_smoke
+    from tcsfm_torch.train.checkpoint import save_checkpoint
+
+    cfg = Config(iterations=chip_smoke.ITERS)
+    nets = build_models(cfg, device="cpu",
+                        generator=torch.Generator().manual_seed(seed))
+    chip_smoke.condition_like_trained(nets[0], torch)
+    save_checkpoint(str(tmp_path), nets, epoch=1, best_val_loss=1.0,
+                    cfg=cfg, is_best=True)
+    return str(tmp_path)
+
+
+def test_evaluate_vo_on_card(cuda, tmp_path):
+    """``evaluate_vo --synthetic`` (24 frames, 64x96, batch 8: 3 batches,
+    3 value launches each) on the card, through ``--model_dir``: pose
+    vectors and DNet scales within 1e-5 of the plain sampler's run (the
+    kernel is bit-equal to it) and within 1e-4 of the CPU's (phase
+    "sequence" read 1.5e-5 card vs CPU, 1.7e-5 for the CPU run with its
+    images one ulp up), the printed errors within 1e-3 (their 3-decimal
+    rounding)."""
+    import chip_smoke
+    from tcsfm_torch.cli import evaluate_vo
+    from tcsfm_torch.cli.common import load_nets
+
+    torch.backends.cudnn.allow_tf32 = False
+    model_dir = _card_model_dir(tmp_path / "model", seed=6)
+    preds = {}
+    for name, device, sampler in (("kernel", "cuda", gs.grid_sample),
+                                  ("plain", "cuda", gs.grid_sample_plain),
+                                  ("cpu", "cpu", gs.grid_sample)):
+        args = evaluate_vo.parse_args(
+            ["--model_dir", model_dir, "--synthetic", "--save_preds",
+             str(tmp_path / name)])
+        chip_smoke.zero_counts(gs)
+        out = evaluate_vo.run(args, *load_nets(model_dir, device), device,
+                              sampler=sampler)
+        if name == "kernel":
+            assert chip_smoke.read_counts(gs) == (3 * (chip_smoke.ITERS - 1),
+                                                  0, 0)
+        preds[name] = (out["synthetic"], chip_smoke.preds_of(
+            tmp_path / name / "synthetic_preds.npz"))
+    for ref, tol in (("plain", 1e-5), ("cpu", 1e-4)):
+        pose, scale = chip_smoke.preds_gap(preds["kernel"][1],
+                                           preds[ref][1])
+        print(f"kernel vs {ref}: pose vectors {pose:.3e}, DNet scales "
+              f"{scale:.3e}")
+        assert pose <= tol and scale <= tol
+        for k in ("errors_unscaled", "errors_dnet", "errors_gt_scaled"):
+            assert np.allclose(preds["kernel"][0][k][:2],
+                               preds[ref][0][k][:2], rtol=0, atol=1e-3)
+
+
+# launches of one call at 3 epochs: PFT's E·I, (E-1)(I-1), E-1; the
+# coupled forward's I-1 value launches, then window_ba (1 LM iteration:
+# 4n+4 value, 14(n+1) value+Jacobian) or two gauss_newton_pose calls (4
+# iterations: 2n+1 value, 6n value+Jacobian each)
+@pytest.mark.parametrize("refiner,expected", [
+    ("adam", lambda i: (3 * i, 2 * (i - 1), 2, 0)),
+    ("ba", lambda i: (i - 1 + 8, 0, 0, 28)),
+    ("gn", lambda i: (i - 1 + 2 * 9, 0, 0, 2 * 24)),
+    ("chain", None)])
+def test_run_sequential_pft_on_card(cuda, tmp_path, refiner, expected):
+    """``run_sequential_pft`` at 64x96 (6 frames: 4 windows, one window
+    batch; 3 epochs; chain 6 frames, one block) on the card through
+    ``--model_dir``: finite results, the cost falling (ba, gn, chain), and
+    the launches (value, d_coords, d_img, value+Jacobian)."""
+    import chip_smoke
+    from tcsfm_torch.cli import run_sequential_pft as seq_pft
+
+    torch.backends.cudnn.allow_tf32 = False
+    model_dir = _card_model_dir(tmp_path / "model", seed=7)
+    chip_smoke.zero_counts(gs)
+    res = seq_pft.main(["--model_dir", model_dir, "--synthetic",
+                        "--synthetic_frames", "6", "--epochs", "3",
+                        "--window_batch", "4", "--refiner", refiner,
+                        "--out_dir", str(tmp_path / "out")])["synthetic"]
+    torch.cuda.synchronize()
+    counts = chip_smoke.read_counts(gs) + (gs.LAUNCHES_FWD_GRADS,)
+    npz = np.load(tmp_path / "out" / "synthetic_pft.npz")
+    assert np.isfinite(npz["pose_opt"]).all()
+    assert np.isfinite(res["errors_optimized"][0])
+    if refiner != "adam":
+        assert res["pft_loss_last"] < res["pft_loss_first"]
+    if expected is not None:
+        assert counts == expected(chip_smoke.ITERS)
+    else:
+        assert npz["pose_opt"].shape == (5, 6) and counts[3] > 0

@@ -63,6 +63,7 @@ sys.path.insert(0, os.path.join(
     os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
     "experiments"))
 import decoder_tail as jdt  # noqa: E402
+from test_torch_threads import one_torch_thread  # noqa: E402, F401 (autouse)
 
 C1, C2 = 32, 8
 

@@ -46,6 +46,7 @@ from tcsfm_torch.data.loader import BatchLoader
 from tcsfm_torch.data.synthetic import make_synthetic_sequence
 from tcsfm_torch.data.transforms import WindowTransform
 from tcsfm_torch.eval import experiments
+from test_torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 H, W = 32, 64
 ARGS = ["--epochs", "3", "--height", str(H), "--width", str(W)]

@@ -16,6 +16,7 @@ from tcsfm.utils import helpers as jhelpers
 from tcsfm_torch.geom import camera, se3, warp
 from tcsfm_torch.ops.grid_sample import grid_sample_plain
 from tcsfm_torch.utils import helpers
+from test_torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 ATOL = 1e-5
 B, H, W = 2, 16, 24

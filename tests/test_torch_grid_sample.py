@@ -29,6 +29,7 @@ import torch
 from tcsfm.geom.warp import grid_sample as jax_grid_sample
 from tcsfm.ops.warp_mxu import grid_sample_mxu
 from tcsfm_torch.ops import grid_sample as gs
+from test_torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 B, H, W, C = 2, 32, 64, 4
 

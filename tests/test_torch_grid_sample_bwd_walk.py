@@ -27,6 +27,7 @@ import torch
 
 import chip_smoke
 from tcsfm_torch.ops import grid_sample as gs
+from test_torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 B, H = 2, 11
 CASES = ["identity", "smooth", "pushed", "edge", "scattered"]

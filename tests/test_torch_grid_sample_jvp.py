@@ -40,6 +40,7 @@ from tcsfm_torch.ops import grid_sample as gs
 
 from test_torch_grid_sample_bwd import (B, H, W, _close_rel, _coords,
                                         _identity_coords)
+from test_torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 C = 3
 CASES = ["in_band", "wide", "pushed", "border"]

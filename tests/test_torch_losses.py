@@ -32,6 +32,7 @@ from tcsfm.losses import photometric as jl
 from tcsfm_torch.config import Config
 from tcsfm_torch.losses import photometric as pl
 from tcsfm_torch.ops import grid_sample as gs
+from test_torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 B, S, H, W = 2, 2, 96, 160
 ATOL = 1e-5

@@ -31,6 +31,7 @@ from tcsfm.train.trainer import create_train_state
 from tcsfm_torch.models.convert import depth_state_dict, from_flax
 from tcsfm_torch.models.depth import DepthNet
 from tcsfm_torch.models.pose import PoseNet
+from test_torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 B, H, W = 2, 64, 96
 DECODER = ("upconv", "iconv", "feature_conv", "disp_head")

@@ -1,5 +1,7 @@
 """No module of the port (``tcsfm_torch/``), nor ``chip_smoke.py``, imports
-JAX or the JAX package ``tcsfm``: the card's machine has no JAX.
+JAX or the JAX package ``tcsfm``: the card's machine has no JAX. Nor
+``msgpack``, which it does not have either (the checkpoints' codec is the
+port's own, ``tcsfm_torch/train/checkpoint.py``).
 
 An AST walk of every source file, since ``tests/conftest.py`` imports JAX
 and so ``sys.modules`` cannot tell. It reads ``import`` and ``from ...
@@ -13,7 +15,7 @@ import pathlib
 import pytest
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
-FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "tcsfm")
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "tcsfm", "msgpack")
 SOURCES = sorted(ROOT.joinpath("tcsfm_torch").rglob("*.py")) + [
     ROOT / "chip_smoke.py"]
 

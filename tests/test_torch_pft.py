@@ -43,6 +43,7 @@ from tcsfm_torch.ops import grid_sample as gs
 from tcsfm_torch.solver import pft
 from tcsfm_torch.solver.coupled import CoupledOutputs
 from tcsfm_torch.utils.helpers import post_process_disparity
+from test_torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 S, B, H, W, ITERS = 2, 2, 32, 64, 2
 

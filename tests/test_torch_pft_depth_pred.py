@@ -16,6 +16,7 @@ and 5.1e-7 (poses) after it.
 import pytest
 
 from test_torch_pft_jax import TOL, assert_results_match, rel_delta, run_both
+from test_torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 
 @pytest.fixture(scope="module")

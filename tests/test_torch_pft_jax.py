@@ -54,6 +54,7 @@ from tcsfm_torch.models.pose import PoseNet
 from tcsfm_torch.ops.grid_sample import grid_sample_plain
 from tcsfm_torch.solver.pft import PFTOptimizer
 from test_torch_coupled import _condition
+from test_torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 H, W, B, ITERS = 32, 64, 2, 2
 OPTS = dict(epochs=3, avg_final_epochs=2, num_source_imgs=2)

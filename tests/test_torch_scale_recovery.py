@@ -23,6 +23,7 @@ import torch
 
 from tcsfm_torch.data.synthetic import make_synthetic_sequence
 from tcsfm_torch.eval import scale_recovery as sr
+from test_torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 # tcsfm.eval's __init__ binds the name scale_recovery to the function
 jax_sr = importlib.import_module("tcsfm.eval.scale_recovery")

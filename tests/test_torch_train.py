@@ -47,6 +47,7 @@ from tcsfm_torch.ops import grid_sample as gs
 from tcsfm_torch.train import trainer
 from tcsfm_torch.train.schedule import halving_schedule
 from test_torch_coupled import _condition
+from test_torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 B, S = 2, 2
 ZERO_GRAD = ("pose", "conv1.0.bias")
