@@ -29,9 +29,18 @@ Phases, each printing its elapsed seconds:
      trained-like weights (``condition_like_trained``);
   5. the second main path: the training step at the same shape (solver,
      loss stack, gradients through both backward kernels, Adam), with
-     launch counts, step time, frames/s, peak memory, and the same step
-     with the plain sampler from the same state;
+     launch counts, step time, frames/s and peak memory with
+     ``remat_coupled`` on (the default) and off in turns, the two steps'
+     losses bit-equal and gradients within the step's rounding limits, and
+     the same step with the plain sampler from the same state;
   6. one training step on the card and on the CPU at a small input;
+ 6b. the seventh main path, phase "train_cli": the training entry point
+     (``tcsfm_torch.cli.train.main``) at full width on generated
+     sequences, two epochs with validation, panels, trajectory eval,
+     checkpoint and logs, then resumed from its checkpoint for a third:
+     the files, the scalars, the resumed step and Adam state bit-equal to
+     the saved, the launches of every training step as phase 5's, the
+     train epochs' wall time and steps/s, and peak memory;
   7. the third main path: the photometric refiners at full resolution
      (``scripts/bench_refiners.py``'s bodies): the coupled forward at B=4,
      S=2, 2 iterations, then ``window_ba`` (10 LM iterations) or
@@ -76,7 +85,8 @@ Prints the kernels' JSON line, then, as the last line,
 non-zero; a hang past the watchdog dumps a traceback and exits non-zero.
 Inputs and weights come from seeds, apart from phase 11's drive, the
 repository's ``.flagship_data/drive1504_192x640/synthetic/
-sequence_data.npz``. Writes under ``build/sequence/``.
+sequence_data.npz``. Writes under ``build/sequence/`` and
+``build/train_cli/``.
 """
 
 from __future__ import annotations
@@ -150,6 +160,12 @@ REF_LOSS_TOL = 1e-5           # train step, card vs CPU, f32
 REF_GRAD_TOL_F32 = 5e-2
 REF_GRAD_TOL_F64 = 1e-4
 TRAIN_WARMUP, TRAIN_TIMED = 2, 5
+# phase "train_cli": the training entry point at full width on generated
+# sequences of 14 frames (12 windows each: 24 training windows, 4 steps
+# of B an epoch; 12 val windows, 2 batches; 12 test windows)
+TRAIN_CLI_ARGS = ["--synthetic", "--img_resolution", "med", "--minibatch",
+                  str(B), "--iterations", str(ITERS), "--synthetic_frames",
+                  "14"]
 # the refiners: scripts/bench_refiners.py's shapes, window batch 4
 RB, RITERS, BLOCK, REFINE_TIMED = 4, 2, 12, 3
 GRADS_TOL = 1e-5              # gx, gy: of their largest magnitude
@@ -209,19 +225,26 @@ PFT_B, PFT_EPOCHS, PFT_TIMED = 4, 20, 3
 # max(PFT_TOL, PFT_SPREAD_FACTOR x the plain call's own spread), at most
 # PFT_CAP, as relative L2. The spreads: the plain run again with its loss
 # scaled one ulp above and one below 1 (STEP_LOSS_SCALES) and the gradients
-# scaled back. Adam's first step is ~lr·sign(g), so a gradient within
-# rounding of 0 moves its weight by 2·lr from one run to the other, and 19
-# steps carry that far. Measured on an H100 (python -m
+# scaled back (two more reruns since, below). Adam's first step is
+# ~lr·sign(g), so a gradient within rounding of 0 moves its weight by 2·lr
+# from one run to the other, and 19 steps carry that far. Measured on an
+# H100 (python -m
 # tcsfm_torch.step_grad_spread --pft, three states in each of three
 # processes, and this phase): the plain call's own spread, relative L2,
 # 5.9e-4..1.3e-2 (losses), 9.3e-3..3.7e-2 (poses_opt), 1.3e-2..9.9e-2
 # (disp_opt), on this phase's state 3.1e-2..4.1e-2 (disp_opt); the kernel
 # call at most 1.33x its spread and 7.3e-2 (disp_opt; 4.2e-2 on this
 # phase's state). PFT_CAP is 1.5x the largest spread read, 9.9e-2. The
-# first step's gradients: 2.3e-6..2.7e-6 apart
+# first step's gradients: 2.3e-6..2.7e-6 apart.
+# The plain call's spread is the largest of four reruns: the loss scaled
+# one ulp above and one below 1, two ulps above (PFT_LOSS_SCALES), and the
+# images one ulp up (one_ulp_up). One reading alone moved ~10x from run to
+# run: a kernel call 1.193e-3 from the plain one failed a limit of 4x a
+# reading of 2.181e-4 where other runs read 3.7e-4-2.1e-3
 PFT_TOL = 1e-5
 PFT_SPREAD_FACTOR = 4
 PFT_CAP = 0.15
+PFT_LOSS_SCALES = STEP_LOSS_SCALES + (1.0 + 2.0 ** -22,)
 PFT_FIELDS = ("losses", "poses_opt", "disp_opt")
 # a small PFT call (B=2, S=2, 64x96, 3 epochs, trained-like) on the card
 # against the same call on the CPU: the first loss within PFT_CPU_LOSS_TOL
@@ -1261,6 +1284,16 @@ def train_batch(torch, b, s, h, w, seed, device):
             for k, v in batch.items()}
 
 
+def step_launches(iters: int, remat: bool):
+    """(value, d_coords only, d_coords + d_img) launches of one training
+    step: the solver's first warp and one in each iteration body but the
+    last (``iters - 1``), the loss's 4-channel warp, and with
+    ``remat_coupled`` the ``iters - 2`` bodies' warps again, recomputed in
+    the backward; each 3-channel warp's backward is d_coords only, the
+    loss warp's d_coords + d_img."""
+    return (iters + (max(iters - 2, 0) if remat else 0), iters - 1, 1)
+
+
 def zero_counts(gs) -> None:
     gs.LAUNCHES = gs.LAUNCHES_BWD_COORDS = gs.LAUNCHES_BWD_IMG = 0
     gs.LAUNCHES_FWD_GRADS = 0
@@ -1430,8 +1463,10 @@ def phase_train(torch, gs, cfg, create_train_state, train_step,
                 forward_loss):
     """The training step at full width, seeded weights with trained-like
     conditioning: launch counts, finite losses, every parameter and
-    BatchNorm statistic moved, time, memory, and the same step with the
-    plain sampler from the same state."""
+    BatchNorm statistic moved, time and peak memory with ``remat_coupled``
+    on (the config's default) and off in turns, the losses of the two
+    bit-equal and their gradients within the step's rounding limits, and
+    the same step with the plain sampler from the same state."""
     import copy
     import dataclasses
 
@@ -1443,40 +1478,105 @@ def phase_train(torch, gs, cfg, create_train_state, train_step,
                 for k, v in m.state_dict().items()}
 
     init = {k: v.detach().clone() for k, v in tensors().items()}
-    times, timeline = [], []
+    settings = (cfg.remat_coupled, not cfg.remat_coupled)
+    expected = {r: step_launches(ITERS, r) for r in settings}
+    times = {r: [] for r in settings}
+    timeline = {r: [] for r in settings}
+    peak = dict.fromkeys(settings, 0)
     start, end = (torch.cuda.Event(enable_timing=True) for _ in "se")
-    torch.cuda.reset_peak_memory_stats()
     for i in range(TRAIN_WARMUP + TRAIN_TIMED):
-        zero_counts(gs)
-        t = time.perf_counter()
-        start.record()
-        losses = train_step(state, batch)
-        end.record()
-        torch.cuda.synchronize()
-        if i >= TRAIN_WARMUP:
-            times.append(time.perf_counter() - t)
-            timeline.append(start.elapsed_time(end))
-        counts = read_counts(gs)
-        check(counts == (ITERS, ITERS - 1, 1), f"step {i}: launches (fwd, "
-              f"bwd_coords, bwd_img) {counts}, expected "
-              f"{(ITERS, ITERS - 1, 1)}")
-        for k, v in losses.items():
-            check(bool(torch.isfinite(v)), f"step {i}: {k} = {v.item()}")
-        check(losses["l_reconstruct_inverse"].item() > 0,
-              f"step {i}: the inverse term is 0 (mean_on_mask guard)")
-    step_counts = counts  # the main path's own: the last timed step
-    say("train", f"main path: per training step launches (fwd, bwd_coords, "
-        f"bwd_img) {step_counts}, expected {(ITERS, ITERS - 1, 1)}, over "
-        f"{len(times) + TRAIN_WARMUP} steps; last losses " + ", ".join(
-            f"{k} {v.item():.6f}" for k, v in sorted(losses.items())))
-    med = statistics.median(times)
-    say("train", f"train step {H}x{W} B={B} S={S} iters={ITERS} f32: median "
-        f"{med * 1e3:.3f} ms over {len(times)} (min {min(times) * 1e3:.3f}, "
-        f"max {max(times) * 1e3:.3f}) -> {B / med:.2f} frames/s; on the "
-        f"card's timeline (CUDA events around the step) median "
-        f"{statistics.median(timeline):.3f} ms (min {min(timeline):.3f}, max "
-        f"{max(timeline):.3f}); peak memory "
-        f"{torch.cuda.max_memory_allocated() / 2**20:.1f} MiB")
+        for remat in settings if i % 2 == 0 else settings[::-1]:
+            state.cfg = dataclasses.replace(cfg, remat_coupled=remat)
+            zero_counts(gs)
+            torch.cuda.reset_peak_memory_stats()
+            t = time.perf_counter()
+            start.record()
+            losses = train_step(state, batch)
+            end.record()
+            torch.cuda.synchronize()
+            peak[remat] = max(peak[remat], torch.cuda.max_memory_allocated())
+            if i >= TRAIN_WARMUP:
+                times[remat].append(time.perf_counter() - t)
+                timeline[remat].append(start.elapsed_time(end))
+            counts = read_counts(gs)
+            check(counts == expected[remat], f"step {i}, remat {remat}: "
+                  f"launches (fwd, bwd_coords, bwd_img) {counts}, expected "
+                  f"{expected[remat]}")
+            if remat == cfg.remat_coupled:
+                step_counts = counts  # the main path's own
+            for k, v in losses.items():
+                check(bool(torch.isfinite(v)), f"step {i}: {k} = {v.item()}")
+            check(losses["l_reconstruct_inverse"].item() > 0,
+                  f"step {i}: the inverse term is 0 (mean_on_mask guard)")
+    state.cfg = cfg
+    say("train", f"main path (remat_coupled={cfg.remat_coupled}): per "
+        f"training step launches (fwd, bwd_coords, bwd_img) {step_counts}, "
+        f"expected {expected[cfg.remat_coupled]} (without remat "
+        f"{expected[not cfg.remat_coupled]}), over "
+        f"{2 * (TRAIN_TIMED + TRAIN_WARMUP)} steps in turns; last losses "
+        + ", ".join(f"{k} {v.item():.6f}" for k, v in sorted(losses.items())))
+    for remat in settings:
+        med = statistics.median(times[remat])
+        say("train", f"train step {H}x{W} B={B} S={S} iters={ITERS} f32, "
+            f"remat_coupled={remat}: median {med * 1e3:.3f} ms over "
+            f"{len(times[remat])} (min {min(times[remat]) * 1e3:.3f}, max "
+            f"{max(times[remat]) * 1e3:.3f}) -> {B / med:.2f} frames/s; on "
+            f"the card's timeline (CUDA events around the step) median "
+            f"{statistics.median(timeline[remat]):.3f} ms (min "
+            f"{min(timeline[remat]):.3f}, max {max(timeline[remat]):.3f}); "
+            f"peak memory {peak[remat] / 2**20:.1f} MiB")
+    meds = {r: statistics.median(times[r]) for r in settings}
+    line = {r: statistics.median(timeline[r]) for r in settings}
+    say("train", f"remat_coupled on vs off: peak memory "
+        f"{(peak[True] - peak[False]) / 2**20:+.1f} MiB, median step "
+        f"{(meds[True] - meds[False]) * 1e3:+.3f} ms wall, "
+        f"{line[True] - line[False]:+.3f} ms on the card's timeline")
+    med = meds[cfg.remat_coupled]
+
+    # remat changes no loss; its gradients from one state (cuDNN
+    # deterministic) are held as the kernel- vs plain-sampler step's, at
+    # limits from the plain step's own rounding spread: on the card they
+    # are not all bit-equal (PERF.md §6, PR 13)
+    off = dataclasses.replace(cfg, remat_coupled=False)
+    with cudnn_deterministic(torch):
+        runs = {}
+        for remat in settings:
+            st = copy.deepcopy(state)
+            st.cfg = dataclasses.replace(cfg, remat_coupled=remat)
+            runs[remat] = step_grads(torch, train_step, st, batch,
+                                     gs.grid_sample)
+        st = copy.deepcopy(state)
+        st.cfg = off
+        _, again = step_grads(torch, train_step, st, batch, gs.grid_sample)
+        _, ref = step_grads(torch, train_step, st, batch, gs.grid_sample_plain)
+        spreads = [rel_l2(rescaled_grads(torch, forward_loss, gs, st, batch,
+                                         c), ref) for c in STEP_LOSS_SCALES]
+    (l_on, g_on), (l_off, g_off) = runs[True], runs[False]
+    loss_differ = sorted(k for k in l_off if not torch.equal(l_on[k],
+                                                             l_off[k]))
+    check(not loss_differ, f"remat_coupled changed the losses {loss_differ}")
+    differ = sorted(k for k in g_off if not torch.equal(g_on[k], g_off[k]))
+    spread = {k: max(sp[k] or 0.0 for sp in spreads) for k in ref}
+    limits, widened = step_grad_limits(spread, "remat on vs off")
+    worst = compare_grads(g_on, g_off, limits.get, "remat_coupled on vs off")
+    rerun = sorted(k for k in g_off if not torch.equal(again[k], g_off[k]))
+    rerun_worst = max((e or 0.0 for e in rel_l2(again, g_off).values()),
+                      default=0.0)
+    say("train", f"the step without remat run twice from one state (cuDNN "
+        f"deterministic): {len(rerun)} of {len(g_off)} gradient tensors "
+        f"differ (pose net {sum(k.startswith('pose.') for k in rerun)}), "
+        f"worst relative L2 {rerun_worst:.3e}")
+    say("train", f"remat_coupled on vs off from one state (cuDNN "
+        f"deterministic): losses bit-equal; {len(g_off) - len(differ)} of "
+        f"{len(g_off)} gradient tensors bit-equal (of the pose net's "
+        f"{sum(k.startswith('pose.') for k in g_off)}: "
+        f"{sum(k.startswith('pose.') for k in differ)} differ; of the depth "
+        f"net's {sum(k.startswith('depth.') for k in g_off)}: "
+        f"{sum(k.startswith('depth.') for k in differ)} differ), worst "
+        f"gradient relative L2 {worst:.3e} (limit {STEP_GRAD_TOL}, or "
+        f"{STEP_SPREAD_FACTOR}x the plain step's own spread where larger, "
+        f"at most {STEP_GRAD_CAP}; worst spread {max(spread.values()):.3e}; "
+        f"{len(widened)} widened)")
 
     grads = grads_of(state)
     moved_params = moved_stats = 0
@@ -1508,7 +1608,7 @@ def phase_train(torch, gs, cfg, create_train_state, train_step,
             torch, gs, train_step, forward_loss, ours, batch,
             f"{label}: kernel vs plain sampler step", sampler=recording)
         cmp_counts = read_counts(gs)
-        check(cmp_counts == (ITERS, ITERS - 1, 1),
+        check(cmp_counts == step_launches(ITERS, cfg.remat_coupled),
               f"{label}: launches {cmp_counts}")
         depth_terms = bool(extra)
         check((seen["d_img"] > 0) == depth_terms, f"{label}: the loss warp's "
@@ -1583,6 +1683,128 @@ def phase_train_reference(torch, cfg, create_train_state, train_step,
         f"relative L2 {worst32:.2e} (limit {REF_GRAD_TOL_F32}, f32 "
         f"resolution); float64 (plain sampler) total diff {total_err:.2e}, "
         f"worst gradient relative L2 {worst64:.2e} (limit {REF_GRAD_TOL_F64})")
+
+
+def phase_train_cli(torch, gs, dt, step_counts):
+    """The seventh main path: the training entry point,
+    ``tcsfm_torch.cli.train.main``, in this process at full width on
+    generated sequences (TRAIN_CLI_ARGS): two epochs, then resumed with
+    ``--load_from_checkpoint`` for a third in the same directory
+    (``build/train_cli/run``). Checks the files, finite train and val
+    scalars of each epoch and the test sequence's from the second on, the
+    resumed run's start (epoch 2, ``step`` and the Adam state bit-equal to
+    the state saved) and every training step's launches against phase
+    "train"'s ``step_counts``. Returns the launches of the two calls by
+    kernel (value, d_coords, d_img, value+Jacobian, tail)."""
+    import copy
+    import json
+    import os
+    import shutil
+    from pathlib import Path
+
+    from tcsfm_torch.cli import train as cli
+    from tcsfm_torch.train import trainer as tr
+
+    work = Path(__file__).resolve().parent / "build" / "train_cli"
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    run_dir = work / "run"
+    args = TRAIN_CLI_ARGS + ["--results_dir", str(work), "--date", "run"]
+    per_step, epochs, loaded = [], [], {}
+    real_step, real_epoch, real_load = (tr.train_step, tr.Trainer.run_epoch,
+                                        cli.load_checkpoint)
+
+    def counted_step(state, batch, **kw):
+        before = read_counts(gs)
+        out = real_step(state, batch, **kw)
+        per_step.append(tuple(a - b for a, b in zip(read_counts(gs),
+                                                    before)))
+        return out
+
+    def timed_epoch(self, loader, epoch, phase="train"):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = real_epoch(self, loader, epoch, phase)
+        torch.cuda.synchronize()
+        epochs.append((phase, epoch, time.perf_counter() - t, len(loader)))
+        return out
+
+    def recorded_load(ckpt_dir, state, load_best):
+        out = real_load(ckpt_dir, state, load_best=load_best)
+        loaded.update(epoch=out[1], step=state.step, adam=copy.deepcopy(
+            state.optimizer.state_dict()["state"]))
+        return out
+
+    def adam_equal(a, b):
+        return sorted(a) == sorted(b) and all(
+            sorted(a[i]) == sorted(b[i]) and all(
+                torch.equal(a[i][k], b[i][k]) for k in a[i]) for i in a)
+
+    zero_counts(gs)
+    dt.LAUNCHES = 0
+    torch.cuda.reset_peak_memory_stats()
+    tr.train_step, tr.Trainer.run_epoch = counted_step, timed_epoch
+    cli.load_checkpoint = recorded_load
+    try:
+        first = quiet(lambda: cli.main(args + ["--num_epochs", "2"]),
+                      work / "epochs_1_2.log")
+        saved = copy.deepcopy(first.state.optimizer.state_dict()["state"])
+        spe = first.state.steps_per_epoch
+        second = quiet(lambda: cli.main(args + [
+            "--num_epochs", "3", "--load_from_checkpoint"]),
+            work / "epoch_3.log")
+    finally:
+        tr.train_step, tr.Trainer.run_epoch = real_step, real_epoch
+        cli.load_checkpoint = real_load
+    torch.cuda.synchronize()
+    launches = read_counts(gs) + (gs.LAUNCHES_FWD_GRADS, dt.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+
+    for name in ("checkpoint.msgpack", "best_model/best_model.msgpack",
+                 "config.json", "logs/scalars.jsonl"):
+        check((run_dir / name).is_file(), f"train_cli: no {name}")
+    with open(run_dir / "logs" / "scalars.jsonl") as f:
+        values = {(r["tag"], r["step"]): r["value"]
+                  for r in map(json.loads, f)}
+    for epoch in (1, 2, 3):
+        for tag in ("train/total", "val/total", "train/l_reconstruct_forward",
+                    "val/l_reconstruct_forward"):
+            v = values.get((tag, epoch))
+            check(v is not None and v == v and abs(v) != float("inf"),
+                  f"train_cli: {tag} at epoch {epoch}: {v}")
+        for tag in ("test/t_ate", "test/r_ate", "test/t_seg", "test/r_seg"):
+            check(((tag, epoch) in values) == (epoch > 1),
+                  f"train_cli: {tag} at epoch {epoch}")
+    check(all(values[("test/t_ate", e)] == values[("test/t_ate", e)]
+              for e in (2, 3)), "train_cli: test/t_ate is NaN")
+    check((loaded.get("epoch"), loaded.get("step")) == (2, 2 * spe),
+          f"train_cli: resumed at epoch {loaded.get('epoch')}, step "
+          f"{loaded.get('step')}, expected 2 and {2 * spe}")
+    check(adam_equal(loaded["adam"], saved), "train_cli: the Adam state "
+          "resumed is not the state saved")
+    check(second.state.step == 3 * spe, f"train_cli: {second.state.step} "
+          f"steps after the third epoch, expected {3 * spe}")
+    check(len(per_step) == 3 * spe and set(per_step) == {step_counts},
+          f"train_cli: launches a training step {sorted(set(per_step))} over "
+          f"{len(per_step)} steps, expected {step_counts} over {3 * spe}")
+    logs = sorted(os.listdir(run_dir / "logs"))
+    trains = [(e, t, n) for p, e, t, n in epochs if p == "train"]
+    say("train_cli", f"{' '.join(TRAIN_CLI_ARGS)}: 2 epochs, then resumed "
+        f"at epoch {loaded['epoch']} (step {loaded['step']}, Adam state "
+        f"bit-equal to the state saved) for a third; {spe} steps an epoch, "
+        f"launches (fwd, bwd_coords, bwd_img) {step_counts} each step, as "
+        f"phase \"train\"; scalars at epochs 1-3, test/t_ate "
+        f"{values[('test/t_ate', 2)]:.3f}, {values[('test/t_ate', 3)]:.3f}; "
+        f"train/total " + ", ".join(f"{values[('train/total', e)]:.6f}"
+                                    for e in (1, 2, 3))
+        + f"; logs/: {logs}")
+    say("train_cli", "train epochs (wall, synchronized): " + ", ".join(
+        f"epoch {e} {t:.3f} s, {n / t:.3f} steps/s" for e, t, n in trains)
+        + "; val epochs: " + ", ".join(
+            f"{t:.3f} s" for p, e, t, n in epochs if p == "val")
+        + f"; peak memory {peak / 2**20:.1f} MiB; launches of the two calls "
+        f"(fwd, bwd_coords, bwd_img, fwd_grads, tail) {launches}")
+    return launches
 
 
 def refiner_inputs(torch, cfg, build_models, seed):
@@ -1976,30 +2198,47 @@ def pft_first_step(torch, opt, batch, sampler, scale=1.0):
 
 def pft_call_readings(torch, gs, pft, opt, batch):
     """The kernel- and plain-sampler PFT calls from ``opt``'s state (cuDNN
-    deterministic), and the plain call again with its loss scaled one ulp
-    above and one below 1 (``STEP_LOSS_SCALES``). Returns, by field of
-    ``PFT_FIELDS``, the kernel call's distance from the plain one and the
-    plain call's own spread (the larger of the two rescaled runs'), each
-    as relative L2 and as max |diff| / max |plain|; and the first loss of
-    the kernel call and of the plain one."""
+    deterministic), and the plain call again in each of
+    ``pft_spread_runs``' ways. Returns, by field of ``PFT_FIELDS``, the
+    kernel call's distance from the plain one and the plain call's own
+    spread (the largest of the reruns', and each rerun's), as relative L2
+    and as max |diff| / max |plain|; and the first loss of the kernel call
+    and of the plain one."""
     plain = gs.grid_sample_plain
     with cudnn_deterministic(torch):
         call = pft_results(opt.optimize_window(batch))
         call_ref = pft_results(opt.optimize_window(batch, sampler=plain))
-        reruns = [pft_results(scaled_loss_optimizer(pft, c)(
-            opt.cfg, opt.opts, opt.depth_net, opt.pose_net,
-            mode=opt.mode).optimize_window(batch, sampler=plain))
-            for c in STEP_LOSS_SCALES]
+        reruns = {name: pft_results(run()) for name, run
+                  in pft_spread_runs(torch, gs, pft, opt, batch)}
     readings = {}
     for k in PFT_FIELDS:
         check(bool(torch.isfinite(call[k]).all()), f"PFT call: {k} not "
               f"finite")
+        spreads = {n: rel_l2_of(r[k], call_ref[k]) for n, r in reruns.items()}
         readings[k] = {
             "rel_l2": rel_l2_of(call[k], call_ref[k]),
-            "spread": max(rel_l2_of(r[k], call_ref[k]) for r in reruns),
+            "spread": max(spreads.values()), "spreads": spreads,
             "rel_max": rel_max(call[k], call_ref[k]),
-            "spread_max": max(rel_max(r[k], call_ref[k]) for r in reruns)}
+            "spread_max": max(rel_max(r[k], call_ref[k])
+                              for r in reruns.values())}
     return readings, (call["losses"][0].item(), call_ref["losses"][0].item())
+
+
+def pft_spread_runs(torch, gs, pft, opt, batch):
+    """(name, call) of the plain-sampler PFT reruns that read the plain
+    call's own spread: its loss scaled by each of PFT_LOSS_SCALES (and the
+    gradients scaled back), and its images one ulp up."""
+    plain = gs.grid_sample_plain
+
+    def scaled(c):
+        return lambda: scaled_loss_optimizer(pft, c)(
+            opt.cfg, opt.opts, opt.depth_net, opt.pose_net,
+            mode=opt.mode).optimize_window(batch, sampler=plain)
+
+    runs = [(f"loss x (1 {c - 1:+.3g})", scaled(c)) for c in PFT_LOSS_SCALES]
+    runs.append(("images one ulp up", lambda: opt.optimize_window(
+        one_ulp_up(torch, batch), sampler=plain)))
+    return runs
 
 
 def pft_parity(torch, gs, pft, opt, batch, what):
@@ -2030,7 +2269,11 @@ def pft_parity(torch, gs, pft, opt, batch, what):
     say("pft", f"{what}: " + ", ".join(
         f"{k} relative L2 {e:.3e} (max {m:.3e}; plain run's own spread "
         f"{sp:.3e}, limit {lim:.3e})" for k, (e, sp, lim, m)
-        in fields.items()) + f"; first loss diff {first:.3e}")
+        in fields.items()) + f"; first loss diff {first:.3e}; the spread "
+        f"readings: " + "; ".join(
+            f"{k} " + ", ".join(f"{n} {v:.3e}" for n, v
+                                in readings[k]["spreads"].items())
+            for k in readings))
     check(first <= STEP_LOSS_TOL * abs(ref_loss0),
           f"{what}: first loss differs by {first}")
     for k, (err, sp, limit, _) in fields.items():
@@ -2653,6 +2896,9 @@ def main() -> int:
                           train_step, forward_loss, gs)
     say("train reference", f"phase took {time.monotonic() - t:.2f} s")
     t = time.monotonic()
+    cli_counts = phase_train_cli(torch, gs, dt, step_counts)
+    say("train_cli", f"phase took {time.monotonic() - t:.2f} s")
+    t = time.monotonic()
     refine_counts, _ = phase_refiners(torch, gs, build_models)
     say("refiners", f"phase took {time.monotonic() - t:.2f} s")
     t = time.monotonic()
@@ -2673,10 +2919,12 @@ def main() -> int:
     bwd_src = "tcsfm_torch/ops/csrc/grid_sample_bwd.cu"
     no_refine = {k: 0 for k in refine_counts}
     # launches per forward, training step, refiner call, tail-route
-    # forward, PFT call; then per VO pass over the drive and per
-    # run_sequential_pft call by refiner
+    # forward, PFT call; then per VO pass over the drive, per
+    # run_sequential_pft call by refiner, and of phase "train_cli"'s two
+    # training CLI calls
     seq_index = {"grid_sample_fwd": 0, "grid_sample_bwd_coords": 1,
                  "grid_sample_bwd_img": 2, "grid_sample_with_grads": 3}
+    cli_index = dict(seq_index, decoder_tail=4)
     per_path = {
         "grid_sample_fwd": (launches, step_counts[0],
                             {k: v[0] for k, v in refine_counts.items()},
@@ -2705,18 +2953,20 @@ def main() -> int:
         vo_pass = 0 if i is None else vo_counts[i]
         seq_calls = {r: 0 if i is None else c[i]
                      for r, c in seq_counts.items()}
+        train_cli = cli_counts[cli_index[name]]
         kernels.append(dict(name=name, route="cuda", source=source,
                             replaces=replaces,
                             launches=fwd + step + sum(refine.values())
                             + tail_fwd + pft_call + vo_pass
-                            + sum(seq_calls.values()),
+                            + sum(seq_calls.values()) + train_cli,
                             launches_per_forward=fwd,
                             launches_per_train_step=step,
                             launches_per_refiner_call=refine,
                             launches_per_tail_forward=tail_fwd,
                             launches_per_pft_call=pft_call,
                             launches_per_vo_sequence=vo_pass,
-                            launches_per_sequential_pft=seq_calls, **row))
+                            launches_per_sequential_pft=seq_calls,
+                            launches_per_train_cli=train_cli, **row))
     print(json.dumps({"kernels": kernels}), flush=True)
     faulthandler.cancel_dump_traceback_later()
     print(json.dumps({"ok": True, "device": {

@@ -2,7 +2,8 @@
 training step read.
 
 Mirrors ``tcsfm/config.py`` (``RESOLUTIONS``, ``Config``) for the fields
-the port uses, with the same names and defaults, so ``Config.from_json``
+the port uses (the model, data, optimisation, loss, ``remat_coupled`` and
+checkpoint fields), with the same names and defaults, so ``Config.from_json``
 reads what the JAX package's ``Config.to_json`` writes (unknown keys are
 skipped), and ``PFTOptions`` with the fields PFT reads.
 ``flow_type='classical'`` (8-channel pose input) is not ported yet:
@@ -10,7 +11,7 @@ skipped), and ``PFTOptions`` with the fields PFT reads.
 (the port computes in float32 with TF32 off), so the JAX package reads a
 file the port wrote as the same run; ``json_notes`` names what the port
 does not take from a file the JAX package wrote (another compute dtype,
-its TPU and data fields), and the CLIs print it.
+its TPU sampler and mesh fields), and the CLIs print it.
 ``l_ssim=False`` is refused by both constructors: the loss stack's diff
 image then keeps its 3 channels, which the JAX package's loss cannot take
 either. The port does not import ``tcsfm``: its ``__init__`` pulls in JAX.
@@ -43,7 +44,17 @@ class Config:
     img_resolution: str = "med"       # key into RESOLUTIONS
     img_per_sample: int = 3           # 1 target + (img_per_sample-1) sources
     iterations: int = 4               # coupled egomotion iterations
+
+    # data (tcsfm/config.py:37-45)
+    data_dir: str = ""
+    data_format: str = "odometry"     # 'odometry' | 'eigen' | 'scannet'
+    train_seq: Tuple[str, ...] = ("00_02", "02_02")
+    val_seq: Tuple[str, ...] = ("05_02",)
+    test_seq: Tuple[str, ...] = ("09_02",)
+    augment_motion: bool = False
     minibatch: int = 6
+    skip: int = 1                     # keep every `skip`-th window
+    correction_rate: int = 1          # frame decimation inside windows
 
     # optimisation (tcsfm/config.py:47-54)
     lr: float = 1e-4
@@ -75,6 +86,17 @@ class Config:
     l_smooth: bool = True
     l_smooth_weight: float = 0.05
 
+    # torch.utils.checkpoint each coupled iteration in the training step:
+    # the backward recomputes the pose net and the warp of each iteration
+    # instead of keeping their activations (tcsfm/config.py:105)
+    remat_coupled: bool = True
+
+    # checkpointing (tcsfm/config.py:112-115)
+    ckpt_dir: str = "results/default"
+    load_from_checkpoint: bool = False
+    load_best_model: bool = False
+    pretrained_dir: str = ""
+
     def __post_init__(self):
         if not self.l_ssim:
             raise NotImplementedError(
@@ -101,7 +123,8 @@ class Config:
             raise NotImplementedError(
                 f"flow_type={d['flow_type']!r} is not ported yet")
         names = {f.name for f in dataclasses.fields(cls)}
-        return cls(**{k: v for k, v in d.items() if k in names})
+        return cls(**{k: tuple(v) if isinstance(v, list) else v
+                      for k, v in d.items() if k in names})
 
     def save(self, path: str) -> None:
         with open(path, "w") as f:
@@ -116,8 +139,8 @@ class Config:
 def json_notes(s: str) -> List[str]:
     """Lines naming what the port does not take from the config JSON ``s``:
     the compute dtype it asks for beside the port's, and its keys that
-    ``Config`` has no field for (the JAX package's TPU sampler, mesh, data
-    and checkpoint settings)."""
+    ``Config`` has no field for (the JAX package's TPU sampler and mesh
+    settings)."""
     d = json.loads(s)
     names = {f.name for f in dataclasses.fields(Config)}
     asked = d.get("compute_dtype", "bfloat16")

@@ -12,7 +12,10 @@ so a converted or reference state dict loads with ``load_state_dict``.
 ``grads_from_flax`` maps a gradient tree the same way, so gradients
 compare key by key. ``to_flax`` is the inverse of ``from_flax``: the port's
 ``state_dict``s as the Flax trees, numpy float32 leaves, which is what the
-checkpoints of both packages hold (``train/checkpoint.py``).
+checkpoints of both packages hold (``train/checkpoint.py``);
+``depth_to_flax`` and ``pose_to_flax`` map one net's tensors, and map
+Adam's moments, which are laid out as the parameters are, onto optax's
+trees.
 """
 
 from __future__ import annotations
@@ -132,16 +135,13 @@ def _conv_k(w: torch.Tensor) -> np.ndarray:
     return np.ascontiguousarray(_np(w).transpose(2, 3, 1, 0))
 
 
-def to_flax(depth_sd: Mapping[str, torch.Tensor],
-            pose_sd: Mapping[str, torch.Tensor]
-            ) -> Tuple[Dict, Dict]:
-    """(depth ``state_dict``, pose ``state_dict``) → (``{"depth", "pose"}``
-    params, depth batch_stats), the trees of ``create_train_state`` with
-    numpy float32 leaves. ``from_flax`` of the result gives every parameter
-    and running statistic back bit for bit; ``num_batches_tracked``, which
-    Flax does not keep (and the port's BatchNorm, with its momentum set,
-    does not read), comes back as 0."""
-    sd = depth_sd
+def depth_to_flax(sd: Mapping[str, torch.Tensor]
+                  ) -> Tuple[Dict, Optional[Dict]]:
+    """A DepthNet ``state_dict`` → (its Flax params tree, its batch_stats
+    tree), numpy float32 leaves. Without running statistics in ``sd`` (a
+    dict of the parameters' names only, such as Adam's moments) the
+    batch_stats tree is None."""
+    has_stats = "encoder.encoder.bn1.running_mean" in sd
     enc: Dict = {
         "conv1": {"kernel": _conv_k(sd["encoder.encoder.conv1.weight"])}}
     est: Dict = {}
@@ -150,7 +150,8 @@ def to_flax(depth_sd: Mapping[str, torch.Tensor],
         return ({"bias": _np(sd[f"{prefix}.bias"]),
                  "scale": _np(sd[f"{prefix}.weight"])},
                 {"mean": _np(sd[f"{prefix}.running_mean"]),
-                 "var": _np(sd[f"{prefix}.running_var"])})
+                 "var": _np(sd[f"{prefix}.running_var"])}
+                if has_stats else None)
 
     enc["bn1"], est["bn1"] = bn("encoder.encoder.bn1")
     for layer in range(1, 5):
@@ -183,7 +184,12 @@ def to_flax(depth_sd: Mapping[str, torch.Tensor],
         refl_conv(f"feature_conv{i}", f"feature_convs.{i}.0")
         refl_conv(f"disp_head{i}", f"predict_disps.{i}.0")
         i += 1
+    return depth, ({"encoder": est} if has_stats else None)
 
+
+def pose_to_flax(pose_sd: Mapping[str, torch.Tensor]) -> Dict:
+    """A PoseNet ``state_dict`` (or a dict of tensors under its parameters'
+    names) → its Flax params tree, numpy float32 leaves."""
     pose: Dict = {}
     i = 1
     while f"conv{i}.0.weight" in pose_sd:
@@ -196,4 +202,17 @@ def to_flax(depth_sd: Mapping[str, torch.Tensor],
         i += 1
     pose["pose_pred"] = {"bias": _np(pose_sd["pose_pred.bias"]),
                          "kernel": _conv_k(pose_sd["pose_pred.weight"])}
-    return {"depth": depth, "pose": pose}, {"encoder": est}
+    return pose
+
+
+def to_flax(depth_sd: Mapping[str, torch.Tensor],
+            pose_sd: Mapping[str, torch.Tensor]
+            ) -> Tuple[Dict, Dict]:
+    """(depth ``state_dict``, pose ``state_dict``) → (``{"depth", "pose"}``
+    params, depth batch_stats), the trees of ``create_train_state`` with
+    numpy float32 leaves. ``from_flax`` of the result gives every parameter
+    and running statistic back bit for bit; ``num_batches_tracked``, which
+    Flax does not keep (and the port's BatchNorm, with its momentum set,
+    does not read), comes back as 0."""
+    depth, stats = depth_to_flax(depth_sd)
+    return {"depth": depth, "pose": pose_to_flax(pose_sd)}, stats

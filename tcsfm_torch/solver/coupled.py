@@ -18,14 +18,25 @@ the last samples the source depth as the sampler's 4-channel tail (JAX's
 ``warp_final``), and the final iteration's error products are formed
 (``CoupledOutputs``). That last warp's backward is the d_img kernel where
 the source depth needs a gradient (PFT's depth modes), else d_coords only.
-``remat`` (recomputing each iteration in the backward) is not ported.
+
+``remat`` (the training step's ``cfg.remat_coupled``) runs each iteration
+body (pose correction, then re-warp) and the final correction under
+``torch.utils.checkpoint`` (``jax.checkpoint`` in
+``tcsfm/solver/coupled.py:232-235``): the backward recomputes their pose
+net and warp instead of keeping the activations. The first warp stays
+outside, as in JAX, so the pose-only path with ``num_iter`` iterations
+makes ``num_iter - 2`` more value launches a training step. The numbers
+do not change: the pose net has GroupNorm only and nothing in the bodies
+draws random numbers, so the recomputation repeats the forward.
 """
 
 from __future__ import annotations
 
+import functools
 from typing import Callable, List, NamedTuple, Optional, Sequence, Tuple
 
 import torch
+import torch.utils.checkpoint
 
 from tcsfm_torch.geom.warp import Sampler, inverse_warp2
 from tcsfm_torch.losses.photometric import _clip, ssim_loss
@@ -98,6 +109,7 @@ def solve_pose_iteratively(
     yaw_pert: Optional[torch.Tensor] = None,
     sampler: Sampler = grid_sample,
     return_errors: bool = False,
+    remat: bool = False,
 ):
     """Iterative coupled pose estimation.
 
@@ -118,6 +130,8 @@ def solve_pose_iteratively(
       sampler:     the warp's bilinear sampler (see ``inverse_warp2``).
       return_errors: also build the fwd/inv error products (masks, diff
                    images, per-iteration pose chains) that PFT's loss reads.
+      remat:       recompute each iteration in the backward (module
+                   docstring).
 
     Returns:
       poses [S, B, 6], poses_inv [S, B, 6], and the per-iteration pose chain
@@ -155,28 +169,39 @@ def solve_pose_iteratively(
         if yaw_pert is not None:
             full_poses[:, 4] += yaw_pert
 
+    def correct(full_poses, img_rec, valid_mask):
+        new_imgs = torch.cat([rec_target * valid_mask, img_rec], -1)
+        return full_poses + pose_apply(new_imgs)
+
+    if return_errors:
+        return _solve_with_errors(num_iter, correct, full_poses, rec_target,
+                                  rec_source, target_depth_full,
+                                  source_depth_full, K_full, split, S, b,
+                                  sampler, remat)
+
     def warp(poses):
         img_rec, valid_mask, _, _ = inverse_warp2(
             rec_source, target_depth_full, source_depth_full, -poses, K_full,
             sample_depth=False, sampler=sampler)
         return img_rec, valid_mask
 
-    if return_errors:
-        return _solve_with_errors(num_iter, pose_apply, full_poses, rec_target,
-                                  rec_source, target_depth_full,
-                                  source_depth_full, K_full, split, S, b,
-                                  sampler)
+    def iter_body(full_poses, img_rec, valid_mask):
+        full_poses = correct(full_poses, img_rec, valid_mask)
+        return (full_poses,) + warp(full_poses)
 
+    if remat:
+        iter_body, correct = _checkpointed(iter_body), _checkpointed(correct)
     chain = [full_poses]
     if num_iter > 1:
         img_rec, valid_mask = warp(full_poses)
     for it in range(num_iter - 1):
-        new_imgs = torch.cat([rec_target * valid_mask, img_rec], -1)
-        full_poses = full_poses + pose_apply(new_imgs)
-        chain.append(full_poses)
         if it < num_iter - 2:
+            full_poses, img_rec, valid_mask = iter_body(full_poses, img_rec,
+                                                        valid_mask)
+        else:
             # the last iteration's re-warp would only feed error products
-            img_rec, valid_mask = warp(full_poses)
+            full_poses = correct(full_poses, img_rec, valid_mask)
+        chain.append(full_poses)
 
     stacked = torch.stack(chain, 1)                           # [2SB, I, 6]
     poses = stacked[:split, -1].reshape(S, b, 6)
@@ -184,9 +209,15 @@ def solve_pose_iteratively(
     return poses, poses_inv, stacked
 
 
-def _solve_with_errors(num_iter, pose_apply, full_poses, rec_target,
+def _checkpointed(fn):
+    """``fn`` whose activations the backward recomputes."""
+    return functools.partial(torch.utils.checkpoint.checkpoint, fn,
+                             use_reentrant=False)
+
+
+def _solve_with_errors(num_iter, correct, full_poses, rec_target,
                        rec_source, target_depth_full, source_depth_full,
-                       K_full, split, S, b, sampler):
+                       K_full, split, S, b, sampler, remat):
     """``solve_pose_iteratively``'s iterations with ``return_errors``:
     ``num_iter`` warps, the last one 4-channel, then the error products
     (``tcsfm/solver/coupled.py:243-301``)."""
@@ -196,15 +227,20 @@ def _solve_with_errors(num_iter, pose_apply, full_poses, rec_target,
                              -poses, K_full, sample_depth=final,
                              sampler=sampler)
 
+    def iter_body(full_poses, img_rec, valid_mask, final):
+        full_poses = correct(full_poses, img_rec, valid_mask)
+        return (full_poses,) + warp(full_poses, final)
+
+    if remat:
+        iter_body = _checkpointed(iter_body)
     chain = [full_poses]
     img_rec, valid_mask, projected_depth, computed_depth = warp(
         full_poses, num_iter == 1)
     for it in range(num_iter - 1):
-        new_imgs = torch.cat([rec_target * valid_mask, img_rec], -1)
-        full_poses = full_poses + pose_apply(new_imgs)
+        (full_poses, img_rec, valid_mask, projected_depth,
+         computed_depth) = iter_body(full_poses, img_rec, valid_mask,
+                                     it == num_iter - 2)
         chain.append(full_poses)
-        img_rec, valid_mask, projected_depth, computed_depth = warp(
-            full_poses, it == num_iter - 2)
 
     stacked = torch.stack(chain, 1)                           # [2SB, I, 6]
     poses = stacked[:split, -1].reshape(S, b, 6)

@@ -16,12 +16,23 @@ own reader and writer for that subset of msgpack (maps, arrays, strings,
 bin, ints, floats, bools, nil, ext), since neither ``msgpack`` nor
 ``flax`` is installed where the port runs.
 
-What is missing: the optimizer state. The JAX package also saves optax's
-``opt_state`` and resumes from it with ``load_best=False``; the port does
-not map torch Adam's state onto optax's ``multi_transform`` tree yet (that
-comes with the training CLI), so ``save_checkpoint`` writes no
-``opt_state`` and ``load_checkpoint(load_best=False)`` raises. What
-``load_best=True`` reads, both packages read from either's files.
+The optimizer state: a ``train.trainer.TrainState`` is saved with
+``opt_state``, torch Adam's state as optax's ``multi_transform`` state
+(``tcsfm/train/trainer.py:52-70``) in the form
+``flax.serialization.to_state_dict`` gives it: ``{"inner_states":
+{label: {"inner_state": chain}}}`` for the labels ``depth`` and ``pose``.
+The chain of a trained net is ``{"0": {"count", "mu", "nu"}, "1":
+{"count"}}`` (Adam, then the schedule), with ``"1": {}`` (the weight decay)
+and the schedule as ``"2"`` when ``cfg.wd > 0``; a frozen net's is ``{}``.
+Each label's ``mu`` and ``nu`` hold the whole params tree with the other
+label's subtree as ``{}`` (optax's ``MaskedNode``), mapped from torch's
+``exp_avg`` and ``exp_avg_sq`` by ``models.convert``'s map of the
+parameters; the counts are int32 scalars: Adam's is torch's per-parameter
+``step``, the schedule's is ``TrainState.step``, which sets the port's
+halving schedule. ``load_checkpoint(load_best=False)`` resumes all of it
+(and ``step``, ``epoch + 1`` and ``best_val_loss``) from a file that either
+package wrote. A tuple of networks is saved without ``opt_state``: such a
+file loads with ``load_best=True`` only.
 """
 
 from __future__ import annotations
@@ -29,12 +40,15 @@ from __future__ import annotations
 import os
 import shutil
 import struct
-from typing import Any, Optional, Tuple
+from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
+import torch
 
 from tcsfm_torch.config import Config
-from tcsfm_torch.models.convert import from_flax, to_flax
+from tcsfm_torch.models.convert import (depth_state_dict, depth_to_flax,
+                                        from_flax, pose_state_dict,
+                                        pose_to_flax, to_flax)
 from tcsfm_torch.models.depth import DepthNet
 from tcsfm_torch.models.pose import PoseNet
 
@@ -263,16 +277,95 @@ def _nets_of(state) -> Tuple[DepthNet, PoseNet]:
     return state.depth_net, state.pose_net
 
 
+LABELS = ("depth", "pose")
+
+
+def _trained(state) -> Tuple[str, ...]:
+    """The labels of the nets ``state``'s optimizer trains (a frozen net
+    has no param group)."""
+    if state.optimizer is None:
+        return ()
+    return tuple(g["name"] for g in state.optimizer.param_groups)
+
+
+def _moment_tree(label: str, moments: Dict[str, torch.Tensor]) -> Dict:
+    """One label's Adam moments (by parameter name) as optax's masked
+    params tree: the label's net mapped as its parameters are, the other
+    label's subtree empty."""
+    tree = (depth_to_flax(moments)[0] if label == "depth"
+            else pose_to_flax(moments))
+    return {k: (tree if k == label else {}) for k in LABELS}
+
+
+def opt_state_tree(state) -> Dict:
+    """``state``'s torch Adam state as optax's ``multi_transform`` state
+    tree (module docstring)."""
+    trained = _trained(state)
+    nets = dict(zip(LABELS, _nets_of(state)))
+    inner = {}
+    for label in LABELS:
+        if label not in trained:
+            inner[label] = {"inner_state": {}}
+            continue
+        adam = state.optimizer.state
+        params = dict(nets[label].named_parameters())
+        steps = {float(adam[p]["step"]) for p in params.values() if p in adam}
+        if len(steps) > 1:
+            raise ValueError(f"the {label} net's parameters have taken "
+                             f"different numbers of Adam steps {steps}; "
+                             f"optax keeps one count a label")
+        count = np.asarray(int(steps.pop()) if steps else 0, np.int32)
+        chain = {"0": {"count": count, **{
+            key: _moment_tree(label, {
+                n: adam[p][name] if p in adam else torch.zeros_like(p)
+                for n, p in params.items()})
+            for key, name in (("mu", "exp_avg"), ("nu", "exp_avg_sq"))}}}
+        if state.cfg.wd:
+            chain["1"] = {}
+        chain[str(len(chain))] = {"count": np.asarray(state.step, np.int32)}
+        inner[label] = {"inner_state": chain}
+    return {"inner_states": inner}
+
+
+def _load_opt_state(state, tree: Any, step: int) -> None:
+    """Puts optax's ``multi_transform`` state ``tree`` into ``state``'s
+    torch Adam; raises, before it changes anything, where its keys or
+    shapes are not those of ``state``'s optimizer or a schedule's count is
+    not ``step``."""
+    _same_tree(opt_state_tree(state), tree, "opt_state")
+    chains = {label: tree["inner_states"][label]["inner_state"]
+              for label in _trained(state)}
+    for label, chain in chains.items():
+        schedule = int(chain[str(len(chain) - 1)]["count"])
+        if schedule != step:
+            raise ValueError(f"the {label} schedule's count {schedule} is "
+                             f"not the checkpoint's step {step}: the port's "
+                             f"schedule runs on the step")
+    nets = dict(zip(LABELS, _nets_of(state)))
+    for label, chain in chains.items():
+        adam = chain["0"]
+        mu, nu = (depth_state_dict(adam[k]["depth"], None)
+                  if label == "depth" else pose_state_dict(adam[k]["pose"])
+                  for k in ("mu", "nu"))
+        count = torch.tensor(float(adam["count"]), dtype=torch.float32)
+        for name, p in nets[label].named_parameters():
+            state.optimizer.state[p] = {
+                "step": count.clone(),
+                "exp_avg": mu[name].to(p.device, p.dtype),
+                "exp_avg_sq": nu[name].to(p.device, p.dtype)}
+
+
 def save_checkpoint(ckpt_dir: str, state, epoch: int,
                     best_val_loss: float, cfg: Optional[Config] = None,
                     is_best: bool = False) -> str:
-    """Write ``state``'s networks (a ``train.trainer.TrainState``, or the
-    tuple ``(depth_net, pose_net)``) as the JAX package's checkpoint:
+    """Write ``state`` (a ``train.trainer.TrainState``, or the tuple
+    ``(depth_net, pose_net)``) as the JAX package's checkpoint:
     ``checkpoint.msgpack``, ``best_model/best_model.msgpack`` when
-    ``is_best``, and ``config.json`` when ``cfg`` is given. The optimizer
-    state is not written (module docstring), so the JAX package's
-    ``load_checkpoint`` reads these files with ``load_best=True`` only.
-    Returns the checkpoint's path."""
+    ``is_best``, and ``config.json`` when ``cfg`` is given. A
+    ``TrainState``'s optimizer state is written as ``opt_state`` (module
+    docstring); a tuple's file has none, and the JAX package's
+    ``load_checkpoint`` reads it with ``load_best=True`` only. Returns the
+    checkpoint's path."""
     os.makedirs(ckpt_dir, exist_ok=True)
     depth_net, pose_net = _nets_of(state)
     params, batch_stats = to_flax(depth_net.state_dict(),
@@ -284,6 +377,8 @@ def save_checkpoint(ckpt_dir: str, state, epoch: int,
         "params": params,
         "batch_stats": batch_stats,
     }
+    if not isinstance(state, tuple):
+        payload["opt_state"] = opt_state_tree(state)
     path = os.path.join(ckpt_dir, "checkpoint.msgpack")
     with open(path, "wb") as f:
         f.write(msgpack_serialize(payload))
@@ -318,22 +413,27 @@ def load_checkpoint(ckpt_dir: str, state, load_best: bool = False
 
     ``load_best=True`` reads ``best_model/best_model.msgpack``, or the
     latest checkpoint where there is no best model, and returns epoch 1
-    and a best_val_loss of 1e5, as the JAX package does. Resuming with
-    ``load_best=False`` needs the optimizer state, which the port does not
-    map yet: it raises ``NotImplementedError``.
+    and a best_val_loss of 1e5, as the JAX package does; the optimizer
+    state and the step stay as they are. ``load_best=False`` resumes
+    ``checkpoint.msgpack`` into a ``train.trainer.TrainState``: the
+    weights, the optimizer state and the step, and returns the saved epoch
+    + 1 and best_val_loss; it raises where ``state`` is a tuple of
+    networks or the file holds no ``opt_state``.
     """
-    if not load_best:
-        raise NotImplementedError(
-            "load_best=False resumes training with the optimizer state; "
-            "mapping torch Adam's state onto optax's tree comes with the "
-            "port's training CLI. Load the weights with load_best=True.")
-    path = os.path.join(ckpt_dir, "best_model", "best_model.msgpack")
-    if not os.path.exists(path):
-        fallback = os.path.join(ckpt_dir, "checkpoint.msgpack")
-        if os.path.exists(fallback):
-            print(f"no best_model in {ckpt_dir}; loading latest "
-                  f"checkpoint instead")
-            path = fallback
+    if load_best:
+        path = os.path.join(ckpt_dir, "best_model", "best_model.msgpack")
+        if not os.path.exists(path):
+            fallback = os.path.join(ckpt_dir, "checkpoint.msgpack")
+            if os.path.exists(fallback):
+                print(f"no best_model in {ckpt_dir}; loading latest "
+                      f"checkpoint instead")
+                path = fallback
+    else:
+        if isinstance(state, tuple):
+            raise ValueError("load_best=False resumes training: pass a "
+                             "train.trainer.TrainState, not a tuple of "
+                             "networks")
+        path = os.path.join(ckpt_dir, "checkpoint.msgpack")
     with open(path, "rb") as f:
         payload = msgpack_restore(f.read())
 
@@ -343,6 +443,16 @@ def load_checkpoint(ckpt_dir: str, state, load_best: bool = False
     _same_tree(params, payload["params"], "params")
     _same_tree(batch_stats, payload["batch_stats"], "batch_stats")
     depth_sd, pose_sd = from_flax(payload["params"], payload["batch_stats"])
+    if not load_best:
+        if "opt_state" not in payload:
+            raise ValueError(f"{path} holds no opt_state (a tuple of "
+                             f"networks was saved): load it with "
+                             f"load_best=True")
+        step = int(payload["step"])
+        _load_opt_state(state, payload["opt_state"], step)
+        state.step = step
     depth_net.load_state_dict(depth_sd)
     pose_net.load_state_dict(pose_sd)
-    return state, 1, 1e5
+    if load_best:
+        return state, 1, 1e5
+    return state, int(payload["epoch"]) + 1, float(payload["best_val_loss"])

@@ -3,7 +3,9 @@ without the mesh).
 
 One training step: the depth net over target + sources (BatchNorm in train
 mode unless the depth net is frozen) → ``disp_to_depth`` → the coupled
-pose solver, differentiated through its 3 pose-only warps → the loss stack
+pose solver, differentiated through its 3 pose-only warps (each iteration
+recomputed in the backward with ``cfg.remat_coupled``, the default, as in
+JAX: 2 more value launches a step) → the loss stack
 and the pose-consistency term → gradients of ``total`` → Adam with the
 halving schedule, the pose net at ``pose_lr_mult`` times the depth lr. The
 BatchNorm running statistics move during the forward (Flax's rule,
@@ -114,7 +116,8 @@ def forward_loss(cfg: Config, depth_net: DepthNet, pose_net: PoseNet,
                  ) -> Tuple[Losses, Tuple[torch.Tensor, torch.Tensor, list]]:
     """The train/val forward (trainer.py:107-164): losses, then (poses,
     poses_inv, disparities). ``train`` puts the depth net's BatchNorm in
-    train mode unless the depth net is frozen."""
+    train mode unless the depth net is frozen, and recomputes the coupled
+    iterations in the backward when ``cfg.remat_coupled``."""
     depth_net.train(train and not cfg.freeze_depthnet)
     tgt_aug = batch["target_img_aug"]
     src_aug = batch["source_imgs_aug"]
@@ -125,7 +128,7 @@ def forward_loss(cfg: Config, depth_net: DepthNet, pose_net: PoseNet,
                           for d in disparities])
     poses, poses_inv, _ = solve_pose_iteratively(
         cfg.iterations, depths, pose_net, tgt_aug, src_aug, K_aug,
-        sampler=sampler)
+        sampler=sampler, remat=train and cfg.remat_coupled)
     losses = compute_losses(cfg, batch["source_imgs"], batch["target_img"],
                             poses, poses_inv, disparities, K_aug,
                             sampler=sampler)

@@ -31,7 +31,7 @@ from tcsfm_torch.config import Config
 from tcsfm_torch.infer import build_models
 from tcsfm_torch.models.convert import from_flax, to_flax
 from tcsfm_torch.train import checkpoint as ckpt
-from tcsfm_torch.train.trainer import create_train_state
+from tcsfm_torch.train.trainer import apply_gradients, create_train_state
 from test_torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 
@@ -195,8 +195,33 @@ def test_port_round_trip_and_best_fallback(nets, tmp_path, capsys):
     assert (f"no best_model in {d2}; loading latest checkpoint instead"
             in capsys.readouterr().out)
 
-    with pytest.raises(NotImplementedError, match="training CLI"):
+    # resuming needs a TrainState and a file with opt_state: a tuple of
+    # nets is saved without one
+    with pytest.raises(ValueError, match="TrainState"):
         ckpt.load_checkpoint(d, other, load_best=False)
+    state = create_train_state(Config(iterations=2), device="cpu")
+    with pytest.raises(ValueError, match="holds no opt_state"):
+        ckpt.load_checkpoint(d, state, load_best=False)
+
+    # a TrainState's file resumes: weights, optimizer state, step, epoch
+    saved = create_train_state(Config(iterations=2), device="cpu",
+                               generator=torch.Generator().manual_seed(2))
+    for p in saved.depth_net.parameters():
+        p.grad = torch.full_like(p, 1e-3)
+    for p in saved.pose_net.parameters():
+        p.grad = torch.full_like(p, -1e-3)
+    apply_gradients(saved)
+    ckpt.save_checkpoint(d, saved, epoch=4, best_val_loss=0.25)
+    resumed, epoch, best = ckpt.load_checkpoint(d, state, load_best=False)
+    assert resumed is state and (epoch, best, state.step) == (5, 0.25, 1)
+    assert_nets_equal((state.depth_net, state.pose_net),
+                      *(n.state_dict() for n in (saved.depth_net,
+                                                  saved.pose_net)))
+    ours, theirs = (s.optimizer.state_dict() for s in (state, saved))
+    assert sorted(ours["state"]) == sorted(theirs["state"])
+    for i, st in theirs["state"].items():
+        for k, v in st.items():
+            assert torch.equal(ours["state"][i][k], v), (i, k)
 
 
 def test_train_state_and_mismatched_tree(nets, tmp_path):
@@ -276,4 +301,7 @@ def test_config_crosses_with_its_compute_dtype(tmp_path, capsys):
     assert out[0] == ("compute dtype: the config asks bfloat16, the port "
                       "computes in float32 (TF32 off)")
     assert out[1].startswith("config keys the port does not read: ")
-    assert "use_mxu_warp" in out[1] and "remat_coupled" in out[1]
+    assert "use_mxu_warp" in out[1] and "mesh_shape" in out[1]
+    # the training CLI's data, remat and checkpoint fields are read now
+    for key in ("train_seq", "remat_coupled", "ckpt_dir", "pretrained_dir"):
+        assert key not in out[1]

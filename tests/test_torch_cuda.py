@@ -244,7 +244,9 @@ def test_autograd_picks_the_kernel(cuda):
 def test_train_step_on_card(cuda):
     """One step with the kernels and one with the plain sampler from the
     same state (chip_smoke.py's seeded, trained-like conditioning, with the
-    depth terms on): 4 forward, 3 d_coords and 1 d_img launches; the same
+    depth terms on, ``remat_coupled`` on as by default): 6 forward (4 and
+    the two iteration bodies' warps recomputed in the backward), 3
+    d_coords and 1 d_img launches (``chip_smoke.step_launches``); the same
     losses (the forward kernel is bit-equal to its plain version) and
     gradients within 1e-4 relative L2, the compared steps with cuDNN's
     deterministic algorithms, a tensor whose plain step does not reproduce
@@ -260,8 +262,10 @@ def test_train_step_on_card(cuda):
     losses, *_ = chip_smoke.step_grad_parity(
         torch, gs, train_step, forward_loss, state, batch,
         "kernel vs plain sampler step")
+    assert state.cfg.remat_coupled
     assert (gs.LAUNCHES - before[0], gs.LAUNCHES_BWD_COORDS - before[1],
-            gs.LAUNCHES_BWD_IMG - before[2]) == (4, 3, 1)
+            gs.LAUNCHES_BWD_IMG - before[2]) == chip_smoke.step_launches(
+                chip_smoke.ITERS, remat=True) == (6, 3, 1)
     assert all(torch.isfinite(v) for v in losses.values())
 
 
@@ -468,8 +472,9 @@ def test_pft_on_card(cuda, mode):
     (``chip_smoke.pft_parity``, cuDNN deterministic: the first step's
     gradients as ``test_train_step_on_card`` holds a step's; the first
     loss within 1e-6 relative; the losses, poses_opt and disp_opt within
-    max(1e-5, 4x the plain call's own spread), at most 0.25, as relative
-    L2). Launches: encoder mode E·I value, (E-1)(I-1) d_coords-only and
+    max(1e-5, 4x the plain call's own spread), at most 0.15, as relative
+    L2, the spread the largest of four plain reruns:
+    ``chip_smoke.pft_spread_runs``). Launches: encoder mode E·I value, (E-1)(I-1) d_coords-only and
     E-1 d_img; 'pose' mode trains no depth, so the 4-channel warp's
     backward is d_coords only too, at C=4: (E-1)·I and no d_img."""
     import chip_smoke
