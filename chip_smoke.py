@@ -75,7 +75,22 @@ Phases, each printing its elapsed seconds:
      iterations) with windows/s, clocks, launches and peak memory;
      ``run_sequential_pft`` with each refiner (adam, ba, gn, chain) at
      192x640 with its launch counts and falling costs; and both CLIs card
-     vs CPU at 64x96, each with the CPU run's images one ulp up beside it.
+     vs CPU at 64x96, each with the CPU run's images one ulp up beside it;
+ 12. the eighth main path, phase "eval": the evaluation CLIs at full width
+     on the committed drive's frames. A reference-layout checkpoint
+     (``save_reference_checkpoint``) through ``import_checkpoint``, read
+     back bit for bit; ``evaluate_depth_eigen`` on 697 frames (the Eigen
+     test split's size) as JPEGs with GT depth at 375x1242, flip-merged,
+     with images/s and peak memory, its ``--pred_disps`` replay equal, and
+     4 frames card vs CPU; ``evaluate_scannet`` on a scene of the first 200
+     frames (gap 8, 8 iterations, batch 4) with the kernel and with the
+     plain sampler held within the plain run's one-ulp spread, its launches
+     (7 a batch), windows/s and peak memory; ``golden_eval``'s real table
+     on the first 256 frames as 09_02 (four anchored rows; the verdicts of
+     these weights printed), and ``golden_eval --synthetic`` at its
+     defaults (JAX's keys, every metric finite, its launches; the gates'
+     verdicts printed, not asserted: the from-scratch gate is calibrated on
+     the JAX package's CPU trajectory).
 
 Phase 2 also holds the sampler's two backward kernels (d_coords only,
 and d_coords + d_img; d_coords bit for bit), its value+Jacobian kernel and
@@ -83,10 +98,10 @@ the decoder tail kernel against their plain versions.
 Prints the kernels' JSON line, then, as the last line,
 ``{"ok": true, "device": {...}}``. Any failed check raises and exits
 non-zero; a hang past the watchdog dumps a traceback and exits non-zero.
-Inputs and weights come from seeds, apart from phase 11's drive, the
+Inputs and weights come from seeds, apart from the drive, the
 repository's ``.flagship_data/drive1504_192x640/synthetic/
-sequence_data.npz``. Writes under ``build/sequence/`` and
-``build/train_cli/``.
+sequence_data.npz`` (phases 11 and 12). Writes under ``build/sequence/``,
+``build/train_cli/`` and ``build/eval/``.
 """
 
 from __future__ import annotations
@@ -280,6 +295,28 @@ SEQ_FRAMES, SEQ_CHAIN_FRAMES, SEQ_CHAIN_BLOCK = 10, 23, 12
 # of it, SEQ_ERR_TOL
 SEQ_TOL, SEQ_SPREAD_FACTOR, SEQ_CAP = 1e-5, 4, 1e-3
 SEQ_ERR_TOL = 1e-3
+# phase "eval": the evaluation CLIs on the committed drive's frames. Eigen
+# at the test split's 697 frames (JPEGs at 192x640 in the Eigen index
+# layout, GT depth x30 to metres nearest-resized to KITTI raw's 375x1242),
+# batch 4, flip-merged, its --pred_disps replay, and 4 frames card vs CPU
+# (the scaled disparity held at the forward's CPU_TOL on the sigmoid, times
+# the scaled disparity's range 1/min_depth - 1/max_depth); ScanNet on the
+# drive's first 200 frames (gap 8: 184 windows in batches of 4, 8
+# iterations); golden_eval's real table on the first 256 frames as 09_02
+# (batch 8, ITERS iterations), and its --synthetic gate at its defaults
+EVAL_EIGEN_FRAMES, EVAL_GT_SHAPE, EVAL_BATCH = 697, (375, 1242), 4
+EVAL_SCENE_FRAMES, EVAL_GAP, EVAL_SCANNET_ITERS = 200, 8, 8
+EVAL_REAL_FRAMES, EVAL_CPU_FRAMES = 256, 4
+EVAL_CPU_TOL = CPU_TOL
+# the keys of golden_eval --synthetic's result, and of its gates (the JAX
+# package's, tcsfm/cli/golden_eval.py:390-406, :472-482)
+GOLDEN_RAW_KEYS = (
+    "mode", "train_loss_first", "train_loss_last", "rot_err_untrained",
+    "rot_err_trained", "trans_dir_err_untrained", "trans_dir_err_trained",
+    "ate_untrained", "ate_trained", "abs_rel_untrained", "abs_rel_trained",
+    "ate_pft_init", "ate_pft_opt", "pft_loss_first", "pft_loss_last")
+GOLDEN_GATES = ("trained_beats_untrained", "trained_depth_absolute",
+                "pft_loss_decreases", "pft_no_trajectory_regression")
 
 
 T0 = time.monotonic()
@@ -2780,6 +2817,402 @@ def phase_sequence(torch, gs, cfg, build_models):
     return vo_counts, refine_counts
 
 
+def save_reference_checkpoint(torch, depth_net, pose_net, path) -> None:
+    """The nets as the reference's published checkpoints hold them
+    (run_mono_training.py:228-234): ``torch.save`` of a dict with
+    ``depth_state_dict``, ``pose_state_dict``, ``epoch`` and
+    ``best_val_loss``; the port's names are the reference's."""
+    torch.save({"depth_state_dict": {k: v.cpu() for k, v in
+                                     depth_net.state_dict().items()},
+                "pose_state_dict": {k: v.cpu() for k, v in
+                                    pose_net.state_dict().items()},
+                "epoch": 7, "best_val_loss": 0.25}, str(path))
+
+
+def nearest_resize(depth, shape):
+    """``depth`` [h, w] nearest-resized to ``shape`` (pixel centres)."""
+    import numpy as np
+
+    h, w = depth.shape
+    iy = ((np.arange(shape[0]) + 0.5) * h / shape[0]).astype(np.int64)
+    ix = ((np.arange(shape[1]) + 0.5) * w / shape[1]).astype(np.int64)
+    return depth[np.ix_(iy, ix)]
+
+
+def write_eigen_split(path, images, K, poses):
+    """``images`` as JPEGs (quality 95, as ``data.preprocess eigen`` writes
+    them) with ``eigen_info_test.npz`` in ``data.eigen.EigenDataset``'s
+    layout, one drive; written on 8 threads."""
+    import os
+    from concurrent.futures import ThreadPoolExecutor
+
+    import numpy as np
+    from PIL import Image
+
+    os.makedirs(path, exist_ok=True)
+
+    def write(i):
+        f = os.path.join(path, f"{i:010d}.jpg")
+        Image.fromarray(images[i]).save(f, quality=95)
+        return f
+
+    with ThreadPoolExecutor(8) as pool:
+        files = list(pool.map(write, range(len(images))))
+    n = len(files)
+    np.savez(os.path.join(path, "eigen_info_test.npz"),
+             files=np.asarray(files), K=K[:n], poses=poses[:n],
+             folders=np.asarray(["drive1504"] * n), idxs=np.arange(n))
+
+
+def write_gt_depths(path, depths) -> int:
+    """``depths`` (1/30-metric) as metric GT maps at ``EVAL_GT_SHAPE`` in
+    ``preprocess eigen_gt_depth``'s npz (an object array under ``data``);
+    returns the maps' bytes."""
+    import numpy as np
+
+    gt = np.empty(len(depths), object)
+    for i, d in enumerate(depths):
+        gt[i] = nearest_resize(d, EVAL_GT_SHAPE) * np.float32(30.0)
+    np.savez(path, data=gt)
+    return sum(g.nbytes for g in gt)
+
+
+def recorded(module, name, out: list):
+    """Context: ``module.name`` wrapped to time each call (CUDA
+    synchronized around it) and keep its result in ``out`` as
+    (seconds, result)."""
+    import torch
+
+    real = getattr(module, name)
+
+    def wrapper(*a, **kw):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        res = real(*a, **kw)
+        torch.cuda.synchronize()
+        out.append((time.perf_counter() - t, res))
+        return res
+
+    @contextlib.contextmanager
+    def ctx():
+        setattr(module, name, wrapper)
+        try:
+            yield out
+        finally:
+            setattr(module, name, real)
+
+    return ctx()
+
+
+def loader_seconds(dataset, batch: int) -> float:
+    """Wall seconds of one pass of the CLIs' loader over ``dataset`` (batch
+    ``batch``, prefetching), with no network behind it."""
+    from tcsfm_torch.data.loader import BatchLoader
+
+    t = time.perf_counter()
+    for _ in BatchLoader(dataset, batch, shuffle=False, drop_last=False,
+                         prefetch=2):
+        pass
+    return time.perf_counter() - t
+
+
+def scannet_vecs(mats):
+    """Fused pose matrices as pose vectors at the solver's scale."""
+    import numpy as np
+
+    from tcsfm_torch.eval.trajectory import np_se3_log
+
+    v = np.stack([np_se3_log(np.asarray(m, np.float64)) for m in mats])
+    v[:, :3] /= 30.0
+    return v
+
+
+def scannet_gap(a, b):
+    """(max |a - b| over the target disparities, over the fused pose
+    vectors) of two ``evaluate_scannet.predict`` results."""
+    import numpy as np
+
+    return (float(np.abs(np.stack(a[1]) - np.stack(b[1])).max()),
+            float(np.abs(scannet_vecs(a[2]) - scannet_vecs(b[2])).max()))
+
+
+def golden_synthetic_launches(args):
+    """(value, d_coords, d_img) launches of ``golden_eval --synthetic`` at
+    ``args``: its training steps (2 iterations, remat on), the VO passes
+    over the test sequence (untrained, trained, and the saved pass with
+    ``--save_dir``; batch 8, 1 value launch a batch) and PFT's calls
+    (window batch 4, ``args.pft_epochs`` epochs)."""
+    windows = 2 * (args.synthetic_frames - 2)
+    test = max(16, args.synthetic_frames)
+    steps = args.train_epochs * (windows // 4)
+    vo = (2 + bool(args.save_dir)) * -(-(test - 1) // 8)
+    calls = -(-(test - 2) // 4)
+    step = step_launches(2, True)
+    call = pft_expected_launches(args.pft_epochs, 2)
+    return (steps * step[0] + vo + calls * call[0],
+            steps * step[1] + calls * call[1],
+            steps * step[2] + calls * call[2])
+
+
+def phase_eval(torch, gs, cfg, build_models):
+    """The eighth main path: the evaluation CLIs on the card, at full
+    width. Returns their launches (value, d_coords, d_img, value+Jacobian)
+    by path."""
+    import dataclasses
+    import os
+    import shutil
+    from pathlib import Path
+
+    import numpy as np
+
+    from tcsfm_torch.cli import (evaluate_depth_eigen, evaluate_scannet,
+                                 golden_eval, import_checkpoint)
+    from tcsfm_torch.cli.common import load_nets
+    from tcsfm_torch.data.dataset import SequenceData
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    root = Path(__file__).resolve().parent
+    work = root / "build" / "eval"
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    model_dir = str(work / "model")
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60).stdout.strip().splitlines()[0]
+    launches = {}
+
+    def counts():
+        return read_counts(gs) + (gs.LAUNCHES_FWD_GRADS,)
+
+    # 1. a reference-layout checkpoint through import_checkpoint
+    nets = build_models(cfg, device="cuda",
+                        generator=torch.Generator().manual_seed(0))
+    condition_like_trained(nets[0], torch)
+    pt = work / "best_model.pt"
+    save_reference_checkpoint(torch, *nets, pt)
+    out = quiet(lambda: import_checkpoint.main(
+        ["--torch_ckpt", str(pt), "--out_dir", model_dir, "--iterations",
+         str(ITERS)]), work / "import.log")
+    check(out["epoch"] == 7 and out["best_val_loss"] == 0.25,
+          f"import_checkpoint printed {out}")
+    depth_net, pose_net = load_nets(model_dir, "cuda")
+    for a, b in zip(nets, (depth_net, pose_net)):
+        sa, sb = a.state_dict(), b.state_dict()
+        check(sa.keys() == sb.keys() and all(torch.equal(sa[k], sb[k])
+                                             for k in sa),
+              "the imported checkpoint did not give the nets back bit for "
+              "bit")
+    say("eval", f"reference-layout .pt ({os.path.getsize(pt)} B) through "
+        f"import_checkpoint, read back by cli.common.load_nets: every "
+        f"tensor bit-equal")
+
+    # 2. Eigen at the test split's size
+    t = time.monotonic()
+    drive = np.load(str(root / SEQ_DRIVE / "synthetic" / "sequence_data.npz"))
+    n_img = max(EVAL_EIGEN_FRAMES, EVAL_SCENE_FRAMES, EVAL_REAL_FRAMES)
+    images = drive["images"][:n_img]
+    depths = drive["depths"][:n_img]
+    K, poses, stamps = (drive[k] for k in ("intrinsics", "gt_poses",
+                                           "timestamps"))
+    load_s = time.monotonic() - t
+    t = time.monotonic()
+    eig = work / "eigen"
+    write_eigen_split(str(eig), images[:EVAL_EIGEN_FRAMES], K, poses)
+    gt_path = str(eig / "gt_depths.npz")
+    gt_bytes = write_gt_depths(gt_path, depths[:EVAL_EIGEN_FRAMES])
+    write_s = time.monotonic() - t
+    disps_path = str(work / "eigen_disps.npy")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts(gs)
+    argv = ["--model_dir", model_dir, "--data_dir", str(eig), "--gt_depths",
+            gt_path, "--batch", str(EVAL_BATCH)]
+    t = time.monotonic()
+    with recorded(evaluate_depth_eigen, "predict", []) as pred:
+        metrics = quiet(lambda: evaluate_depth_eigen.main(
+            argv + ["--save_pred_disps", disps_path]), work / "eigen.log")
+    wall = time.monotonic() - t
+    launches["eigen"] = counts()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 20
+    pred_s, disps = pred[0]
+    check(disps.shape == (EVAL_EIGEN_FRAMES, H, W)
+          and np.isfinite(disps).all(), f"Eigen disparities {disps.shape}")
+    check(all(np.isfinite(v) for v in metrics.values())
+          and 0.0 <= metrics["a1"] <= 1.0, f"Eigen metrics {metrics}")
+    t = time.monotonic()
+    replay = quiet(lambda: evaluate_depth_eigen.main(
+        ["--gt_depths", gt_path, "--pred_disps", disps_path]),
+        work / "eigen_replay.log")
+    replay_s = time.monotonic() - t
+    check(replay == metrics, f"the --pred_disps replay {replay} is not the "
+          f"run's {metrics}")
+    check(launches["eigen"] == (0, 0, 0, 0), f"Eigen launched the sampler: "
+          f"{launches['eigen']}")
+    from tcsfm_torch.data.eigen import EigenDataset
+
+    eig_loader_s = loader_seconds(EigenDataset(str(eig), mode="test"),
+                                  EVAL_BATCH)
+    imgs = torch.from_numpy(images[:EVAL_BATCH].astype(np.float32)
+                            / np.float32(255.0)).cuda()
+    fwd_ms = time_ms(lambda: evaluate_depth_eigen.scaled_disparity(
+        depth_net, imgs, cfg), iters=10, warmup=3)
+    say("eval", f"{card}: evaluate_depth_eigen, {EVAL_EIGEN_FRAMES} frames "
+        f"at {H}x{W}, batch {EVAL_BATCH} (flip-merged: {2 * EVAL_BATCH} "
+        f"images a forward), GT {EVAL_GT_SHAPE[0]}x{EVAL_GT_SHAPE[1]} "
+        f"({gt_bytes / 1e9:.2f} GB of f32): predictions {pred_s:.3f} s -> "
+        f"{EVAL_EIGEN_FRAMES / pred_s:.2f} images/s (the loader alone "
+        f"{eig_loader_s:.3f} s; one flip-merged forward of {EVAL_BATCH} "
+        f"images {fwd_ms:.3f} ms, x{-(-EVAL_EIGEN_FRAMES // EVAL_BATCH)} = "
+        f"{fwd_ms * -(-EVAL_EIGEN_FRAMES // EVAL_BATCH) / 1e3:.3f} s); the "
+        f"CLI {wall:.3f} s "
+        f"with its metrics (host); the --pred_disps replay {replay_s:.3f} s, "
+        f"metrics equal; the drive's load {load_s:.3f} s, the split written "
+        f"in {write_s:.3f} s; peak memory {peak:.1f} MiB; "
+        + ", ".join(f"{k} {v:.4f}" for k, v in metrics.items()))
+
+    small = work / "eigen_small"
+    write_eigen_split(str(small), images[:EVAL_CPU_FRAMES], K, poses)
+    args = evaluate_depth_eigen.parse_args(["--model_dir", model_dir,
+                                            "--data_dir", str(small)])
+    cpu_depth, cpu_pose = load_nets(model_dir, "cpu")
+    got = quiet(lambda: evaluate_depth_eigen.predict(args, depth_net, "cuda"),
+                work / "eigen_small.log")
+    ref = quiet(lambda: evaluate_depth_eigen.predict(args, cpu_depth, "cpu"),
+                work / "eigen_small_cpu.log")
+    span = 1.0 / cfg.min_depth - 1.0 / cfg.max_depth
+    err = float(np.abs(got - ref).max()) / span
+    say("eval", f"Eigen, {EVAL_CPU_FRAMES} frames card vs CPU: scaled "
+        f"disparity {err:.3e} of its range apart (limit {EVAL_CPU_TOL})")
+    check(err <= EVAL_CPU_TOL, f"Eigen card vs CPU {err} > {EVAL_CPU_TOL}")
+    os.remove(gt_path)
+    os.remove(disps_path)
+
+    # 3. ScanNet: a scene of the drive's first frames, kernel vs plain
+    n = EVAL_SCENE_FRAMES
+    scan = work / "scannet"
+    os.makedirs(scan)
+    scene = dict(name="scene0", intrinsics=K[:n], gt_poses=poses[:n],
+                 vo_poses=poses[:n], timestamps=stamps[:n],
+                 depths=depths[:n])
+    np.savez(scan / "scene0.npz", images=images[:n], **scene)
+    np.savez(scan / "scene0_ulp.npz", images=np.nextafter(
+        images[:n].astype(np.float32) / np.float32(255.0), np.float32(2.0)),
+        **dict(scene, name="scene0_ulp"))
+    windows = n - 2 * EVAL_GAP
+    runs = {}
+    for name, scenes, sampler in (
+            ("kernel", "scene0", gs.grid_sample),
+            ("plain", "scene0", gs.grid_sample_plain),
+            ("plain_ulp", "scene0_ulp", gs.grid_sample_plain)):
+        args = evaluate_scannet.parse_args(
+            ["--model_dir", model_dir, "--data_dir", str(scan), "--scenes",
+             scenes, "--iterations", str(EVAL_SCANNET_ITERS), "--frame_gap",
+             str(EVAL_GAP), "--batch", str(EVAL_BATCH)])
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        zero_counts(gs)
+        with recorded(evaluate_scannet, "predict", []) as pred:
+            res = quiet(lambda: evaluate_scannet.run(
+                args, depth_net, pose_net, "cuda", sampler=sampler),
+                work / f"scannet_{name}.log")
+        runs[name] = (pred[0][0], pred[0][1], res, counts(),
+                      torch.cuda.max_memory_allocated() / 2 ** 20)
+    wall, preds, res, got, peak = runs["kernel"]
+    launches["scannet"] = got
+    want = (-(-windows // EVAL_BATCH) * (EVAL_SCANNET_ITERS - 1), 0, 0, 0)
+    check(got == want, f"evaluate_scannet launches {got}, expected {want}")
+    check(runs["plain"][3] == (0, 0, 0, 0), "the plain run launched kernels")
+    check(len(preds[2]) == windows and all(
+        np.isfinite(v) for part in res.values() for v in part.values()),
+        f"evaluate_scannet: {len(preds[2])} windows, {res}")
+    from tcsfm_torch.data.scannet import ScanNetTestDataset
+    from tcsfm_torch.utils.helpers import to_device
+
+    ds = ScanNetTestDataset([SequenceData.from_npz(str(scan / "scene0.npz"))],
+                            frame_gap=EVAL_GAP)
+    scan_loader_s = loader_seconds(ds, EVAL_BATCH)
+    from tcsfm_torch.data.loader import collate_windows
+
+    x = to_device(collate_windows([ds[i] for i in range(EVAL_BATCH)]),
+                  ("target_img", "source_imgs", "intrinsics"), "cuda")
+    cfg8 = dataclasses.replace(cfg, iterations=EVAL_SCANNET_ITERS)
+    infer_ms = time_ms(lambda: evaluate_scannet.infer(
+        cfg8, depth_net, pose_net, x["target_img"], x["source_imgs"][0],
+        x["intrinsics"]), iters=5, warmup=2)
+    err = scannet_gap(preds, runs["plain"][1])
+    spread = scannet_gap(runs["plain_ulp"][1], runs["plain"][1])
+    text = "; ".join(f"{what} {e:.3e} (spread {s:.3e}, limit "
+                     f"{seq_limit(s):.3e})" for what, e, s in zip(
+                         ("disparities", "pose vectors"), err, spread))
+    say("eval", f"{card}: evaluate_scannet, {windows} windows at {H}x{W} "
+        f"(gap {EVAL_GAP}), batch {EVAL_BATCH}, {EVAL_SCANNET_ITERS} "
+        f"iterations, flip-merged: {wall:.3f} s -> {windows / wall:.2f} "
+        f"windows/s (the loader alone {scan_loader_s:.3f} s; one batch's "
+        f"infer {infer_ms:.3f} ms, x{-(-windows // EVAL_BATCH)} = "
+        f"{infer_ms * -(-windows // EVAL_BATCH) / 1e3:.3f} s); launches (value, d_coords, d_img, value+Jacobian) "
+        f"{got} (expected {want}: {EVAL_SCANNET_ITERS - 1} a batch); peak "
+        f"memory {peak:.1f} MiB; kernel vs plain sampler: {text}; "
+        f"depth {res['depth']}, pose {res['pose']}")
+    check(all(e <= seq_limit(s) for e, s in zip(err, spread)),
+          f"evaluate_scannet kernel vs plain: {text}")
+
+    # 4. golden_eval's real table on the drive's first frames as 09_02
+    n = EVAL_REAL_FRAMES
+    # KITTI's poses are in metres, the drive's at the networks' 1/30 scale
+    metric = poses[:n].copy()
+    metric[:, :3, 3] *= 30.0
+    real = SequenceData(name="09_02", intrinsics=K[:n], gt_poses=metric,
+                        vo_poses=metric, timestamps=stamps[:n])
+    write_sequence(work / "real" / "09_02", real, images[:n])
+    zero_counts(gs)
+    t = time.monotonic()
+    out = quiet(lambda: golden_eval.main(
+        ["--model_dir", model_dir, "--data_dir", str(work / "real"),
+         "--seqs", "09_02", "--iterations", str(ITERS)]),
+        work / "golden_real.log")
+    wall = time.monotonic() - t
+    launches["golden_real"] = counts()
+    rows = out["seqs"]["09_02"]["rows"]
+    anchors = golden_eval.BASELINES["09_02"]
+    check(len(rows) == 4 and all(
+        r["baseline"] == anchors[r["metric"]] and "tol" in r
+        and r["status"] in ("PASS", "FAIL") for r in rows),
+        f"golden_eval's table: {rows}")
+    want = (-(-(n - 1) // 8) * (ITERS - 1), 0, 0, 0)
+    check(launches["golden_real"] == want, f"golden_eval real launches "
+          f"{launches['golden_real']}, expected {want}")
+    say("eval", f"golden_eval (real path) on the drive's first {n} frames "
+        f"as 09_02, {ITERS} iterations: {wall:.3f} s; launches "
+        f"{launches['golden_real']}; rows (random weights, verdicts not "
+        f"asserted): " + "; ".join(
+            f"{r['metric']} {r['ours']:.3f} vs {r['baseline']} + {r['tol']} "
+            f"{r['status']}" for r in rows))
+
+    # 5. golden_eval --synthetic at its defaults
+    argv = ["--synthetic"]
+    zero_counts(gs)
+    t = time.monotonic()
+    out = quiet(lambda: golden_eval.main(argv), work / "golden_synthetic.log")
+    torch.cuda.synchronize()
+    wall = time.monotonic() - t
+    launches["golden_synthetic"] = counts()
+    want = golden_synthetic_launches(golden_eval.parse_args(argv)) + (0,)
+    check(set(GOLDEN_RAW_KEYS) | {"inject_regression", "gates", "pass"}
+          == set(out) and set(out["gates"]) == set(GOLDEN_GATES),
+          f"golden_eval --synthetic keys {sorted(out)}")
+    check(all(np.isfinite(out[k]) for k in GOLDEN_RAW_KEYS[1:]),
+          f"golden_eval --synthetic: a metric is not finite: {out}")
+    check(launches["golden_synthetic"] == want, f"golden_eval --synthetic "
+          f"launches {launches['golden_synthetic']}, expected {want}")
+    say("eval", f"{card}: golden_eval --synthetic at its defaults: "
+        f"{wall:.3f} s; launches {launches['golden_synthetic']}; gates "
+        f"(printed, not asserted) {out['gates']}; "
+        + ", ".join(f"{k} {out[k]!r}" for k in GOLDEN_RAW_KEYS[1:]))
+    return launches
+
+
 def med_config():
     """The main path's configuration: med res, B=6, 4 iterations."""
     from tcsfm_torch.config import Config
@@ -2914,14 +3347,17 @@ def main() -> int:
     t = time.monotonic()
     vo_counts, seq_counts = phase_sequence(torch, gs, cfg, build_models)
     say("sequence", f"phase took {time.monotonic() - t:.2f} s")
+    t = time.monotonic()
+    eval_counts = phase_eval(torch, gs, cfg, build_models)
+    say("eval", f"phase took {time.monotonic() - t:.2f} s")
 
     fwd_src = "tcsfm_torch/ops/csrc/grid_sample.cu"
     bwd_src = "tcsfm_torch/ops/csrc/grid_sample_bwd.cu"
     no_refine = {k: 0 for k in refine_counts}
     # launches per forward, training step, refiner call, tail-route
     # forward, PFT call; then per VO pass over the drive, per
-    # run_sequential_pft call by refiner, and of phase "train_cli"'s two
-    # training CLI calls
+    # run_sequential_pft call by refiner, of phase "train_cli"'s two
+    # training CLI calls, and of phase "eval"'s runs by CLI
     seq_index = {"grid_sample_fwd": 0, "grid_sample_bwd_coords": 1,
                  "grid_sample_bwd_img": 2, "grid_sample_with_grads": 3}
     cli_index = dict(seq_index, decoder_tail=4)
@@ -2954,11 +3390,13 @@ def main() -> int:
         seq_calls = {r: 0 if i is None else c[i]
                      for r, c in seq_counts.items()}
         train_cli = cli_counts[cli_index[name]]
+        evals = {p: 0 if i is None else c[i] for p, c in eval_counts.items()}
         kernels.append(dict(name=name, route="cuda", source=source,
                             replaces=replaces,
                             launches=fwd + step + sum(refine.values())
                             + tail_fwd + pft_call + vo_pass
-                            + sum(seq_calls.values()) + train_cli,
+                            + sum(seq_calls.values()) + train_cli
+                            + sum(evals.values()),
                             launches_per_forward=fwd,
                             launches_per_train_step=step,
                             launches_per_refiner_call=refine,
@@ -2966,7 +3404,8 @@ def main() -> int:
                             launches_per_pft_call=pft_call,
                             launches_per_vo_sequence=vo_pass,
                             launches_per_sequential_pft=seq_calls,
-                            launches_per_train_cli=train_cli, **row))
+                            launches_per_train_cli=train_cli,
+                            launches_per_eval=evals, **row))
     print(json.dumps({"kernels": kernels}), flush=True)
     faulthandler.cancel_dump_traceback_later()
     print(json.dumps({"ok": True, "device": {

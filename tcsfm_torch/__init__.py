@@ -11,5 +11,8 @@ Entry points: ``tcsfm_torch.infer`` (``build_models``, ``coupled_forward``),
 ``tcsfm_torch.train.trainer`` (``create_train_state``, ``train_step``,
 ``eval_step``, ``Trainer``), the refiners (``tcsfm_torch.solver.ba``,
 ``tcsfm_torch.solver.gauss_newton``), PFT (``tcsfm_torch.solver.pft``,
-``PFTOptimizer``) and ``python -m tcsfm_torch.cli.demo_pft``.
+``PFTOptimizer``) and the CLIs under ``tcsfm_torch.cli`` (``train``,
+``evaluate_vo``, ``run_sequential_pft``, ``experiments``, ``demo_pft``,
+``import_checkpoint``, ``evaluate_depth_eigen``, ``evaluate_scannet``,
+``golden_eval``; ``python -m tcsfm_torch.cli.<name>``).
 """

@@ -1,2 +1,3 @@
-"""Data pipeline: sequences, windows, transforms, loader and synthetic
-sequences (numpy; copies of ``tcsfm.data``'s modules, imports rewritten)."""
+"""Data pipeline: sequences, windows, transforms, loader, synthetic
+sequences, the KITTI and ScanNet readers and the preprocessing CLI (numpy;
+copies of ``tcsfm.data``'s modules, imports rewritten)."""

@@ -1,1 +1,2 @@
-"""Evaluation: scale recovery and the paper experiments (counterpart of ``tcsfm.eval``)."""
+"""Evaluation: VO, trajectories, depth metrics, scale recovery and the paper
+experiments (counterpart of ``tcsfm.eval``)."""

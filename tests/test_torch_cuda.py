@@ -17,6 +17,10 @@ run in another order); the
 decoder tail kernel vs its plain version (cuDNN convolutions, TF32 off)
 atol 1e-5 on the sigmoid output (the sums run in another order), its
 gradient (the plain version's autodiff either way) 1e-6 of the largest.
+The evaluation CLIs: scaled disparities within 1e-5 (the plain sampler's
+run) and 1e-4 (the CPU's) of their range, 1/min_depth - 1/max_depth;
+ScanNet's fused pose vectors within 1e-5 and 1e-4; the warm-start gate's
+PFT t-ATE within the CPU's own one-ulp spread (its test's docstring).
 """
 
 import numpy as np
@@ -518,6 +522,11 @@ def test_pft_on_card(cuda, mode):
     print(mode, grads, fields, first)
 
 
+# card vs CPU where f32 does not resolve a path: within this many times
+# the CPU run's own one-ulp spread (chip_smoke's SEQ_SPREAD_FACTOR)
+SPREAD_FACTOR = 4
+
+
 def _card_model_dir(tmp_path, seed):
     """A checkpoint of seeded, trained-like nets (4 iterations) in
     ``tmp_path``, written by the port."""
@@ -608,3 +617,148 @@ def test_run_sequential_pft_on_card(cuda, tmp_path, refiner, expected):
         assert counts == expected(chip_smoke.ITERS)
     else:
         assert npz["pose_opt"].shape == (5, 6) and counts[3] > 0
+
+
+def _eigen_split(root, frames=6):
+    """``frames`` synthetic 64x96 frames as PNGs in the Eigen index layout,
+    and their metric GT depths nearest-resized to 120x372."""
+    from PIL import Image
+
+    import chip_smoke
+    from tcsfm_torch.data.synthetic import make_synthetic_sequence
+
+    seq = make_synthetic_sequence(frames, (64, 96), seed=8)
+    files = []
+    for i in range(frames):
+        files.append(str(root / f"{i:010d}.png"))
+        Image.fromarray((seq.images[i] * 255).astype(np.uint8)).save(
+            files[-1])
+    np.savez(root / "eigen_info_test.npz", files=np.asarray(files),
+             K=seq.intrinsics, poses=seq.gt_poses,
+             folders=np.asarray(["drive0"] * frames), idxs=np.arange(frames))
+    gt = np.empty(frames, object)
+    for i in range(frames):
+        gt[i] = chip_smoke.nearest_resize(seq.depths[i], (120, 372)) * 30.0
+    np.savez(root / "gt_depths.npz", data=gt)
+    return str(root)
+
+
+def test_evaluate_depth_eigen_on_card(cuda, tmp_path):
+    """``evaluate_depth_eigen`` (6 frames at 64x96, batch 4, flip-merged)
+    on the card against the CPU: the scaled disparities within 1e-5 of
+    their range (the forward's card-vs-CPU 1e-5 on the sigmoid), the
+    metrics within 1e-4 relative; the path launches no sampler kernel."""
+    import chip_smoke
+    from tcsfm_torch.cli import evaluate_depth_eigen
+
+    torch.backends.cudnn.allow_tf32 = False
+    model_dir = _card_model_dir(tmp_path / "model", seed=8)
+    data = _eigen_split(tmp_path)
+    out = {}
+    for device in ("cuda", "cpu"):
+        chip_smoke.zero_counts(gs)
+        npy = str(tmp_path / f"{device}.npy")
+        out[device] = (evaluate_depth_eigen.main(
+            ["--model_dir", model_dir, "--data_dir", data, "--gt_depths",
+             data + "/gt_depths.npz", "--save_pred_disps", npy, "--device",
+             device]), np.load(npy))
+        assert chip_smoke.read_counts(gs) == (0, 0, 0)
+    cfg = Config()
+    span = 1.0 / cfg.min_depth - 1.0 / cfg.max_depth
+    err = np.abs(out["cuda"][1] - out["cpu"][1]).max() / span
+    print(f"Eigen card vs CPU: scaled disparity {err:.3e} of its range")
+    assert err <= 1e-5
+    for k, v in out["cpu"][0].items():
+        assert abs(out["cuda"][0][k] - v) <= 1e-4 * max(abs(v), 1e-12), k
+
+
+def test_evaluate_scannet_on_card(cuda, tmp_path):
+    """``evaluate_scannet`` (a 21-frame 64x96 scene, gap 4: 13 windows in
+    batches of 4, 8 iterations) on the card: 7 value launches a batch; the
+    disparities and fused pose vectors within 1e-5 of the plain sampler's
+    run (the kernel is bit-equal to it) and within 1e-4 of the CPU's."""
+    import chip_smoke
+    from tcsfm_torch.cli import evaluate_scannet
+    from tcsfm_torch.cli.common import load_nets
+    from tcsfm_torch.data.synthetic import make_synthetic_sequence
+
+    torch.backends.cudnn.allow_tf32 = False
+    model_dir = _card_model_dir(tmp_path / "model", seed=9)
+    make_synthetic_sequence(21, (64, 96), seed=7).save_npz(
+        str(tmp_path / "scene0.npz"))
+    args = evaluate_scannet.parse_args(
+        ["--model_dir", model_dir, "--data_dir", str(tmp_path), "--scenes",
+         "scene0", "--frame_gap", "4"])
+    runs = {}
+    for name, device, sampler in (("kernel", "cuda", gs.grid_sample),
+                                  ("plain", "cuda", gs.grid_sample_plain),
+                                  ("cpu", "cpu", gs.grid_sample)):
+        chip_smoke.zero_counts(gs)
+        runs[name] = evaluate_scannet.predict(
+            args, *load_nets(model_dir, device), device, sampler=sampler)
+        if name == "kernel":
+            assert chip_smoke.read_counts(gs) == (4 * 7, 0, 0)
+    cfg = Config()
+    span = 1.0 / cfg.min_depth - 1.0 / cfg.max_depth
+    for ref, tol in (("plain", 1e-5), ("cpu", 1e-4)):
+        disp, pose = chip_smoke.scannet_gap(runs["kernel"], runs[ref])
+        print(f"ScanNet kernel vs {ref}: disparities {disp:.3e} (their range "
+              f"{span:.2f}), pose vectors {pose:.3e}")
+        assert disp <= tol * span and pose <= tol
+    assert np.isfinite(list(evaluate_scannet.metrics(
+        *runs["kernel"])["pose"].values())).all()
+
+
+def test_golden_warm_start_gate_on_card(cuda, tmp_path):
+    """``golden_eval --warm_start_gate`` at the CLI's defaults: phase A
+    (``--synthetic --device cpu`` in a subprocess, 5 epochs at 64x96) on
+    the card's host CPU, phase B on the card, ``native`` reported from the
+    float32 run. Its VO parity gates and its PFT loss parity gate (card vs
+    CPU from the same weights) must pass. The PFT t-ATE is held to the
+    CPU's own spread: the card's gap to the CPU's t-ATE within
+    ``SPREAD_FACTOR`` x the larger gap of the same PFT on the CPU with the
+    test images one ulp up or down, at least the CLI's gate (0.050, set
+    <10% above the JAX package's TPU reading 0.046). The continued-training
+    gates (calibrated on the JAX package's TPU run) are printed beside the
+    same continuation on the CPU."""
+    import dataclasses
+    import json
+
+    from tcsfm_torch.cli import golden_eval
+    from tcsfm_torch.train.checkpoint import load_checkpoint
+
+    torch.backends.cudnn.allow_tf32 = False
+    warm = str(tmp_path / "warm")
+    out = golden_eval.main(["--warm_start_gate", "--warm_dir", warm])
+    print(json.dumps(out, indent=1, default=float))
+    assert out["variants"]["native"] == out["variants"]["match"]
+
+    args = golden_eval.parse_args([])
+    with open(f"{warm}/warm_metrics.json") as f:
+        cpu = json.load(f)
+    cfg = Config.load(f"{warm}/config.json")
+    _, seq = golden_eval.synthetic_data(args)
+    state = create_train_state(cfg, device="cpu", steps_per_epoch=32)
+    load_checkpoint(warm, state)
+    spread = 0.0
+    for direction in (2.0, -1.0):
+        moved = dataclasses.replace(seq, images=np.nextafter(
+            seq.images, np.float32(direction)))
+        _, ate, _ = golden_eval._run_pft(cfg, state.depth_net,
+                                         state.pose_net, moved, args,
+                                         torch.device("cpu"))
+        spread = max(spread, abs(ate - cpu["ate_pft_opt"])
+                     / cpu["ate_pft_opt"])
+    limit = max(args.warm_pft_ate_gate, SPREAD_FACTOR * spread)
+    cont = golden_eval.continue_training(warm, args, torch.device("cpu"))
+    print(f"PFT t-ATE card vs CPU {out['pft_ate_delta_rel']:.4f}; the CPU's "
+          f"own one-ulp spread {spread:.4f}, limit {limit:.4f}; continued "
+          f"training on the card: loss ratio "
+          f"{out['variants']['match']['loss_ratio']:.4f}, rot ratio "
+          f"{out['variants']['match']['rot_ratio']:.4f}; on the CPU: loss "
+          f"ratio {cont['loss_ratio']:.4f}, rot ratio "
+          f"{cont['rot_ratio']:.4f} (gates {args.warm_loss_gate}, "
+          f"{args.warm_rot_gate})")
+    for gate in ("vo_pose_parity", "vo_ate_parity", "pft_loss_parity"):
+        assert out["gates"][gate], (gate, out)
+    assert out["pft_ate_delta_rel"] <= limit
