@@ -90,7 +90,21 @@ Phases, each printing its elapsed seconds:
      these weights printed), and ``golden_eval --synthetic`` at its
      defaults (JAX's keys, every metric finite, its launches; the gates'
      verdicts printed, not asserted: the from-scratch gate is calibrated on
-     the JAX package's CPU trajectory).
+     the JAX package's CPU trajectory);
+ 13. the ninth main path, phase "flow": classical optical flow
+     (``flow_type='classical'``, iterations 1, the 8-channel pose net)
+     at 192x640. Its config and seeded nets through a checkpoint, read
+     back bit for bit; ``ops.flow.batched_flow_pair`` on two pairs of the
+     drive card vs CPU within the CPU run's spread with its images one ulp
+     up; a textured frame's known sub-pixel shift recovered; ``evaluate_vo
+     --iterations 1`` through ``main`` over the drive's first 256 frames
+     (no sampler launch), one timed pass of its evaluator (windows/s), the
+     flow pair's and the whole batch's device ms (CUDA events), peak
+     memory; the validation panels with the flows inside
+     ``utils.profiling.trace`` (one value launch a panel, equal to the
+     plain sampler's, the trace naming the kernel); the legacy
+     ``inverse_warp`` kernel vs plain (one launch); the SE(3) maps card vs
+     CPU.
 
 Phase 2 also holds the sampler's two backward kernels (d_coords only,
 and d_coords + d_img; d_coords bit for bit), its value+Jacobian kernel and
@@ -100,8 +114,8 @@ Prints the kernels' JSON line, then, as the last line,
 non-zero; a hang past the watchdog dumps a traceback and exits non-zero.
 Inputs and weights come from seeds, apart from the drive, the
 repository's ``.flagship_data/drive1504_192x640/synthetic/
-sequence_data.npz`` (phases 11 and 12). Writes under ``build/sequence/``,
-``build/train_cli/`` and ``build/eval/``.
+sequence_data.npz`` (phases 11-13). Writes under ``build/sequence/``,
+``build/train_cli/``, ``build/eval/`` and ``build/flow/``.
 """
 
 from __future__ import annotations
@@ -317,6 +331,22 @@ GOLDEN_RAW_KEYS = (
     "ate_pft_init", "ate_pft_opt", "pft_loss_first", "pft_loss_last")
 GOLDEN_GATES = ("trained_beats_untrained", "trained_depth_absolute",
                 "pft_loss_decreases", "pft_no_trajectory_regression")
+
+# phase "flow": classical flow at 192x640. The Farneback pair card vs CPU
+# on FLOW_PAIRS of the drive, held at FLOW_SPREAD_FACTOR x the CPU run's
+# own spread with its images one ulp up, at least FLOW_TOL px; a textured
+# frame's known sub-pixel shift FLOW_SHIFT recovered within
+# tests/test_flow.py's FLOW_SHIFT_TOL px; evaluate_vo --iterations 1 over
+# the drive's first FLOW_VO_FRAMES frames (batch SEQ_BATCH); the panels
+# (FLOW_PANELS samples); the legacy inverse_warp on FLOW_WARP_SHAPE; the
+# SE(3) maps card vs CPU on FLOW_SE3_N vectors within CPU_TOL
+FLOW_PAIRS = ((0, 1), (700, 701))
+FLOW_TOL, FLOW_SPREAD_FACTOR = 1e-5, 4
+FLOW_SHIFT, FLOW_SHIFT_TOL = (1.5, -1.0), 0.3
+FLOW_VO_FRAMES, FLOW_PANELS, FLOW_TIMED = 256, 3, 5
+FLOW_WARP_SHAPE = (6, 192, 640, 3)
+FLOW_SE3_N = 1024
+FLOW_KERNEL = "grid_sample_fwd_kernel"
 
 
 T0 = time.monotonic()
@@ -3213,6 +3243,257 @@ def phase_eval(torch, gs, cfg, build_models):
     return launches
 
 
+def phase_flow(torch, gs, build_models):
+    """The ninth main path, phase "flow": classical flow on the card at
+    192x640 (``ops.flow``), the 8-channel pose net's one-shot VO and
+    validation panels, the legacy ``inverse_warp``, the SE(3) maps and
+    ``utils.profiling.trace``. Returns the value kernel's launches by
+    path (the other kernels launch no time here)."""
+    import json as json_
+    import os
+    import shutil
+    from pathlib import Path
+
+    import numpy as np
+    import scipy.ndimage as ndi
+
+    from tcsfm_torch.cli import evaluate_vo
+    from tcsfm_torch.config import Config
+    from tcsfm_torch.data.dataset import SequenceData, SfMWindowDataset
+    from tcsfm_torch.data.transforms import get_transforms
+    from tcsfm_torch.eval.vo import VOEvaluator
+    from tcsfm_torch.geom import se3
+    from tcsfm_torch.geom.warp import inverse_warp
+    from tcsfm_torch.ops import flow
+    from tcsfm_torch.train.checkpoint import load_checkpoint, save_checkpoint
+    from tcsfm_torch.train.validate import depth_and_reconstruction_panels
+    from tcsfm_torch.utils import profiling
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    root = Path(__file__).resolve().parent
+    work = root / "build" / "flow"
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    model_dir = str(work / "model")
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60).stdout.strip().splitlines()[0]
+    launches = {}
+
+    def counts():
+        return read_counts(gs) + (gs.LAUNCHES_FWD_GRADS,)
+
+    # 1. a classical config with seeded 8-channel nets through a checkpoint
+    cfg = Config(iterations=1, flow_type="classical", img_resolution="med")
+    nets = build_models(cfg, device="cuda",
+                        generator=torch.Generator().manual_seed(0))
+    condition_like_trained(nets[0], torch)
+    check(nets[1].conv1[0].weight.shape[1] == 8,
+          f"the pose net takes {nets[1].conv1[0].weight.shape[1]} channels")
+    save_checkpoint(model_dir, nets, epoch=1, best_val_loss=1.0, cfg=cfg,
+                    is_best=True)
+    fresh = build_models(cfg, device="cuda",
+                         generator=torch.Generator().manual_seed(1))
+    load_checkpoint(model_dir, fresh, load_best=True)
+    for a, b in zip(nets, fresh):
+        sa, sb = a.state_dict(), b.state_dict()
+        check(sa.keys() == sb.keys() and all(torch.equal(sa[k], sb[k])
+                                             for k in sa),
+              "the classical checkpoint did not give the nets back bit for "
+              "bit")
+    check(Config.load(os.path.join(model_dir, "config.json")) == cfg,
+          "config.json did not give the classical config back")
+    say("flow", "classical config (iterations 1, 8-channel pose net) and "
+        "seeded nets through a checkpoint: every tensor bit-equal")
+
+    # 2. the flow pair on the card against the CPU on the drive's frames,
+    # held at the CPU run's own spread with its images one ulp up
+    drive = root / SEQ_DRIVE
+    seq = SequenceData.from_npz(str(drive / "synthetic" / "sequence_data.npz"))
+    frames = seq.images
+    pairs = np.stack([np.stack([frames[i], frames[j]]) for i, j in
+                      FLOW_PAIRS]).astype(np.float32) / np.float32(255.0)
+    tgt, src = torch.from_numpy(pairs[:, 0]), torch.from_numpy(pairs[:, 1])
+
+    def pair_px(t, s):
+        fwd, back = flow.batched_flow_pair(t, s)
+        return torch.stack([fwd, back]).double().cpu().numpy() * W
+
+    on_card = pair_px(tgt.cuda(), src.cuda())
+    on_cpu = pair_px(tgt, src)
+    up = [torch.from_numpy(np.nextafter(x.numpy(), np.float32(2.0)))
+          for x in (tgt, src)]
+    on_cpu_ulp = pair_px(*up)
+    gap = float(np.abs(on_card - on_cpu).max())
+    spread = float(np.abs(on_cpu_ulp - on_cpu).max())
+    limit = max(FLOW_TOL, FLOW_SPREAD_FACTOR * spread)
+    check(np.isfinite(on_card).all(), "the card's flow is not finite")
+    say("flow", f"batched_flow_pair on drive pairs {FLOW_PAIRS} at {H}x{W}: "
+        f"card vs CPU {gap:.3e} px (the CPU with its images one ulp up: "
+        f"{spread:.3e} px, limit {limit:.3e}); |flow| up to "
+        f"{np.abs(on_card).max():.2f} px")
+    check(gap <= limit, f"flow card vs CPU {gap} px > {limit}")
+
+    # 3. a textured frame's known sub-pixel shift, on the card
+    rng = np.random.RandomState(0)
+    base = ndi.gaussian_filter(rng.rand(H, W).astype(np.float32), 3.0) * 255
+    moved = ndi.shift(base, FLOW_SHIFT[::-1], order=3, mode="nearest")
+    got = flow.farneback_flow(torch.from_numpy(base).cuda(),
+                              torch.from_numpy(moved).cuda()).cpu().numpy()
+    mean = got[12:-12, 12:-12].reshape(-1, 2).mean(0)
+    say("flow", f"farneback_flow of a texture shifted by {FLOW_SHIFT} px: "
+        f"interior mean {mean[0]:.4f}, {mean[1]:.4f} px (limit "
+        f"{FLOW_SHIFT_TOL} px)")
+    check(np.abs(mean - FLOW_SHIFT).max() <= FLOW_SHIFT_TOL,
+          f"the shift came back as {mean}")
+
+    # 4. evaluate_vo --iterations 1 through main over the drive's first
+    # frames, then one timed pass of the evaluator it builds
+    cut = SequenceData(name="cut", intrinsics=seq.intrinsics[:FLOW_VO_FRAMES],
+                       gt_poses=seq.gt_poses[:FLOW_VO_FRAMES],
+                       vo_poses=seq.vo_poses[:FLOW_VO_FRAMES],
+                       timestamps=seq.timestamps[:FLOW_VO_FRAMES],
+                       images=frames[:FLOW_VO_FRAMES])
+    del seq, frames
+    write_sequence(work / "data" / "cut", cut, cut.images)
+    argv = ["--model_dir", model_dir, "--data_dir", str(work / "data"),
+            "--seqs", "cut", "--batch", str(SEQ_BATCH), "--iterations", "1"]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts(gs)
+    t0 = time.monotonic()
+    errs = quiet(lambda: evaluate_vo.main(argv), work / "vo.log")["cut"]
+    torch.cuda.synchronize()
+    main_s = time.monotonic() - t0
+    launches["evaluate_vo"] = counts()
+    check(launches["evaluate_vo"] == (0, 0, 0, 0), f"evaluate_vo "
+          f"--iterations 1 launched {launches['evaluate_vo']}: the one-shot "
+          f"pose warps nothing")
+    check(all(np.isfinite(errs[k][:2]).all() for k in
+              ("errors_unscaled", "errors_dnet", "errors_gt_scaled")),
+          f"evaluate_vo errors not finite: {errs}")
+    peak = torch.cuda.max_memory_allocated() / 2**20
+    windows = FLOW_VO_FRAMES - 1
+    depth_net, pose_net = nets
+    ev = VOEvaluator(evaluate_vo.config_of(evaluate_vo.parse_args(argv)),
+                     depth_net, pose_net, device="cuda")
+
+    def one_pass():
+        t1 = time.monotonic()
+        quiet(lambda: ev.run_sequence(cut, batch_size=SEQ_BATCH),
+              work / "vo_pass.log")
+        torch.cuda.synchronize()
+        return time.monotonic() - t1
+
+    wall, clocks = with_clocks(one_pass)
+    batch = cut.images[:SEQ_BATCH + 1].astype(np.float32) / np.float32(255.0)
+    b_tgt = torch.from_numpy(batch[1:]).cuda()
+    b_src = torch.from_numpy(batch[:-1])[None].cuda()
+    b_K = torch.from_numpy(np.ascontiguousarray(
+        cut.intrinsics[:SEQ_BATCH], np.float32)).cuda()
+    with torch.no_grad():
+        flow_ms = time_ms(lambda: flow.pose_flows(b_tgt, b_src),
+                          iters=FLOW_TIMED, warmup=1)
+        infer_ms = time_ms(lambda: ev.infer(b_tgt, b_src, b_K),
+                           iters=FLOW_TIMED, warmup=1)
+    say("flow", f"{card}: evaluate_vo --iterations 1 (classical flow) over "
+        f"the drive's first {FLOW_VO_FRAMES} frames, {windows} windows, "
+        f"batch {SEQ_BATCH}: main {main_s:.3f} s (nets and frames loaded, "
+        f"cold shapes); one pass of its evaluator {wall:.3f} s -> "
+        f"{windows / wall:.2f} windows/s; clocks {clocks}; a batch of "
+        f"{SEQ_BATCH}: the flow pair {flow_ms:.3f} ms of {infer_ms:.3f} ms "
+        f"(CUDA events over {FLOW_TIMED} calls; "
+        f"{100 * flow_ms / infer_ms:.1f}%); peak memory "
+        f"{peak:.1f} MiB; launches {launches['evaluate_vo']}; errors "
+        + ", ".join(f"{k} {errs[k]}" for k in
+                    ("errors_unscaled", "errors_dnet", "errors_gt_scaled")))
+
+    # 5. the validation panels at iterations 1 with the flows, one value
+    # launch a panel, inside profiling.trace, then the plain sampler
+    ds = SfMWindowDataset([cut], seq_len=3, transform=get_transforms()["val"])
+    plain = depth_and_reconstruction_panels(
+        cfg, depth_net, pose_net, ds, n_samples=FLOW_PANELS,
+        sampler=gs.grid_sample_plain)
+    trace_dir = str(work / "trace")
+    zero_counts(gs)
+    t0 = time.monotonic()
+    with profiling.trace(trace_dir):
+        panels = depth_and_reconstruction_panels(
+            cfg, depth_net, pose_net, ds, n_samples=FLOW_PANELS)
+        torch.cuda.synchronize()
+    traced_s = time.monotonic() - t0
+    launches["panels"] = counts()
+    check(launches["panels"] == (FLOW_PANELS, 0, 0, 0),
+          f"the panels launched {launches['panels']}, expected "
+          f"({FLOW_PANELS}, 0, 0, 0)")
+    panel_gap = max(float(np.abs(panels[k] - plain[k]).max())
+                    for k in panels)
+    check(all(np.isfinite(v).all() for v in panels.values()),
+          "a panel is not finite")
+    with open(os.path.join(trace_dir, "trace.json")) as f:
+        trace = json_.load(f)
+    kernels = [e for e in trace.get("traceEvents", [])
+               if e.get("cat") == "kernel"
+               and FLOW_KERNEL in str(e.get("name"))]
+    say("flow", f"panels at iterations 1 with the flows, {FLOW_PANELS} "
+        f"samples: kernel vs plain sampler {panel_gap:.3e} (limit "
+        f"{KERNEL_TOL}); launches {launches['panels']}; the traced call "
+        f"{traced_s:.3f} s (trace written), "
+        f"{os.path.getsize(os.path.join(trace_dir, 'trace.json'))} B, "
+        f"{len(kernels)} {FLOW_KERNEL} events ("
+        f"{sum(e.get('dur', 0) for e in kernels):.1f} us)")
+    check(panel_gap <= KERNEL_TOL, f"panels kernel vs plain {panel_gap}")
+    check(len(kernels) == FLOW_PANELS, f"the trace names {FLOW_KERNEL} "
+          f"{len(kernels)} times, expected {FLOW_PANELS}")
+
+    # 6. the legacy inverse_warp: kernel vs plain, one launch
+    n, h, w, c = FLOW_WARP_SHAPE
+    g = torch.Generator().manual_seed(5)
+    img = torch.rand(FLOW_WARP_SHAPE, generator=g).cuda()
+    depth = (1.0 + torch.rand((n, h, w), generator=g)).cuda()
+    pose = (torch.randn((n, 6), generator=g) * 0.02).cuda()
+    K = torch.tensor([[0.58 * w, 0, w / 2], [0, 1.92 * h, h / 2],
+                      [0, 0, 1]]).expand(n, 3, 3).contiguous().cuda()
+    zero_counts(gs)
+    warped, valid = inverse_warp(img, depth, pose, K)
+    torch.cuda.synchronize()
+    launches["inverse_warp"] = counts()
+    check(launches["inverse_warp"] == (1, 0, 0, 0),
+          f"inverse_warp launched {launches['inverse_warp']}")
+    ref, ref_valid = inverse_warp(img, depth, pose, K,
+                                  sampler=gs.grid_sample_plain)
+    warp_gap = float((warped - ref).abs().max())
+    check(torch.equal(valid, ref_valid) and warp_gap <= KERNEL_TOL,
+          f"inverse_warp kernel vs plain {warp_gap}")
+    say("flow", f"inverse_warp on {list(FLOW_WARP_SHAPE)}: kernel vs plain "
+        f"{warp_gap:.3e} (limit {KERNEL_TOL}), valid share "
+        f"{valid.float().mean().item():.3f}, launches "
+        f"{launches['inverse_warp']}")
+
+    # 7. the SE(3) maps on the card against the CPU
+    # rotation angles in [0, 2]: so3_log holds for theta in [0, pi)
+    axis = torch.randn((FLOW_SE3_N, 3), generator=g)
+    axis = axis / axis.norm(dim=1, keepdim=True)
+    xi = torch.cat([torch.randn((FLOW_SE3_N, 3), generator=g),
+                    axis * 2.0 * torch.rand((FLOW_SE3_N, 1), generator=g)],
+                   1)
+    noisy = se3.se3_exp(xi)
+    noisy[:, :3, :3] += 1e-2 * torch.randn((FLOW_SE3_N, 3, 3), generator=g)
+    fns = {"so3_exp": (se3.so3_exp, xi[:, 3:]), "se3_exp": (se3.se3_exp, xi),
+           "so3_log": (se3.so3_log, se3.so3_exp(xi[:, 3:])),
+           "se3_log": (se3.se3_log, se3.se3_exp(xi)),
+           "se3_inv": (se3.se3_inv, se3.se3_exp(xi)),
+           "se3_from_matrix": (se3.se3_from_matrix, noisy)}
+    gaps = {k: float((fn(x.cuda()).cpu() - fn(x)).abs().max())
+            for k, (fn, x) in fns.items()}
+    say("flow", f"SE(3) maps on {FLOW_SE3_N} vectors, card vs CPU (limit "
+        f"{CPU_TOL}): " + ", ".join(f"{k} {v:.3e}" for k, v in gaps.items()))
+    check(max(gaps.values()) <= CPU_TOL, f"SE(3) card vs CPU {gaps}")
+    return {k: v[0] for k, v in launches.items()}
+
+
 def med_config():
     """The main path's configuration: med res, B=6, 4 iterations."""
     from tcsfm_torch.config import Config
@@ -3350,6 +3631,9 @@ def main() -> int:
     t = time.monotonic()
     eval_counts = phase_eval(torch, gs, cfg, build_models)
     say("eval", f"phase took {time.monotonic() - t:.2f} s")
+    t = time.monotonic()
+    flow_counts = phase_flow(torch, gs, build_models)
+    say("flow", f"phase took {time.monotonic() - t:.2f} s")
 
     fwd_src = "tcsfm_torch/ops/csrc/grid_sample.cu"
     bwd_src = "tcsfm_torch/ops/csrc/grid_sample_bwd.cu"
@@ -3357,7 +3641,8 @@ def main() -> int:
     # launches per forward, training step, refiner call, tail-route
     # forward, PFT call; then per VO pass over the drive, per
     # run_sequential_pft call by refiner, of phase "train_cli"'s two
-    # training CLI calls, and of phase "eval"'s runs by CLI
+    # training CLI calls, of phase "eval"'s runs by CLI, and of phase
+    # "flow"'s paths (the value kernel only)
     seq_index = {"grid_sample_fwd": 0, "grid_sample_bwd_coords": 1,
                  "grid_sample_bwd_img": 2, "grid_sample_with_grads": 3}
     cli_index = dict(seq_index, decoder_tail=4)
@@ -3391,12 +3676,14 @@ def main() -> int:
                      for r, c in seq_counts.items()}
         train_cli = cli_counts[cli_index[name]]
         evals = {p: 0 if i is None else c[i] for p, c in eval_counts.items()}
+        flows = {p: n if name == "grid_sample_fwd" else 0
+                 for p, n in flow_counts.items()}
         kernels.append(dict(name=name, route="cuda", source=source,
                             replaces=replaces,
                             launches=fwd + step + sum(refine.values())
                             + tail_fwd + pft_call + vo_pass
                             + sum(seq_calls.values()) + train_cli
-                            + sum(evals.values()),
+                            + sum(evals.values()) + sum(flows.values()),
                             launches_per_forward=fwd,
                             launches_per_train_step=step,
                             launches_per_refiner_call=refine,
@@ -3405,7 +3692,8 @@ def main() -> int:
                             launches_per_vo_sequence=vo_pass,
                             launches_per_sequential_pft=seq_calls,
                             launches_per_train_cli=train_cli,
-                            launches_per_eval=evals, **row))
+                            launches_per_eval=evals,
+                            launches_per_flow=flows, **row))
     print(json.dumps({"kernels": kernels}), flush=True)
     faulthandler.cancel_dump_traceback_later()
     print(json.dumps({"ok": True, "device": {

@@ -24,6 +24,9 @@ run prints both). ``--no_mxu_warp``, ``--fast_sampler`` and
 workarounds an f32 gather on the card does not need: the port has one
 sampler, exact in f32, and takes them without effect. ``--n_devices``
 above 1 raises: distribution is not ported (ROADMAP §1 item 6).
+``--flow_type classical`` raises before the first step: the training
+step's iterative solver cannot take the 8-channel pose net, and the JAX
+package's step fails on it too (``build_config``).
 Visualization never stops training where matplotlib or PIL is missing;
 a failure of the panels' or the trajectory's forward does.
 """
@@ -102,11 +105,19 @@ def parse_args(argv=None):
 
 
 def build_config(args) -> Config:
-    if args.flow_type != "none":
-        raise NotImplementedError(
-            f"flow_type={args.flow_type!r} is not ported yet")
+    if args.flow_type == "classical":
+        raise ValueError(
+            "--flow_type classical cannot train: the training step runs the "
+            "iterative coupled solver, which feeds the pose net 6-channel "
+            "pairs, and the JAX package fails the same way (its "
+            "create_train_state builds an 8-channel pose net, "
+            "tcsfm/train/trainer.py:93-94, that solve_pose_iteratively "
+            "feeds 6-channel stacks, tcsfm/solver/coupled.py:163-165). "
+            "Classical flow runs on the one-shot evaluation paths "
+            "(evaluate_vo --iterations 1)")
     return Config(
-        num_scales=args.num_scales, img_resolution=args.img_resolution,
+        flow_type=args.flow_type, num_scales=args.num_scales,
+        img_resolution=args.img_resolution,
         img_per_sample=args.img_per_sample, iterations=args.iterations,
         data_dir=args.data_dir, data_format=args.data_format,
         train_seq=tuple(args.train_seq), val_seq=tuple(args.val_seq),

@@ -6,12 +6,14 @@ the port uses (the model, data, optimisation, loss, ``remat_coupled`` and
 checkpoint fields), with the same names and defaults, so ``Config.from_json``
 reads what the JAX package's ``Config.to_json`` writes (unknown keys are
 skipped), and ``PFTOptions`` with the fields PFT reads.
-``flow_type='classical'`` (8-channel pose input) is not ported yet:
-``from_json`` refuses it. ``to_json`` adds ``"compute_dtype": "float32"``
-(the port computes in float32 with TF32 off), so the JAX package reads a
-file the port wrote as the same run; ``json_notes`` names what the port
-does not take from a file the JAX package wrote (another compute dtype,
-its TPU sampler and mesh fields), and the CLIs print it.
+``flow_type='classical'`` feeds the pose net two Farneback flow channels
+(8 input channels, ``pose_input_channels``) on the one-shot pose paths,
+as in the JAX package (``ops/flow.py``). ``to_json`` adds
+``"compute_dtype": "float32"`` (the port computes in float32 with TF32
+off), so the JAX package reads a file the port wrote as the same run;
+``json_notes`` names what the port does not take from a file the JAX
+package wrote (another compute dtype, its TPU sampler and mesh fields),
+and the CLIs print it.
 ``l_ssim=False`` is refused by both constructors: the loss stack's diff
 image then keeps its 3 channels, which the JAX package's loss cannot take
 either. The port does not import ``tcsfm``: its ``__init__`` pulls in JAX.
@@ -40,6 +42,7 @@ RESOLUTIONS = {
 class Config:
     """Model, solver, optimisation and loss settings."""
 
+    flow_type: str = "none"           # 'none' | 'classical' (8-ch pose input)
     num_scales: int = 1               # disparity scales the depth net emits
     img_resolution: str = "med"       # key into RESOLUTIONS
     img_per_sample: int = 3           # 1 target + (img_per_sample-1) sources
@@ -112,6 +115,10 @@ class Config:
     def num_source_imgs(self) -> int:
         return self.img_per_sample - 1
 
+    @property
+    def pose_input_channels(self) -> int:
+        return 8 if self.flow_type == "classical" else 6
+
     def to_json(self) -> str:
         d = dict(dataclasses.asdict(self), compute_dtype=COMPUTE_DTYPE)
         return json.dumps(d, indent=2, sort_keys=True)
@@ -119,9 +126,6 @@ class Config:
     @classmethod
     def from_json(cls, s: str) -> "Config":
         d = json.loads(s)
-        if d.get("flow_type", "none") != "none":
-            raise NotImplementedError(
-                f"flow_type={d['flow_type']!r} is not ported yet")
         names = {f.name for f in dataclasses.fields(cls)}
         return cls(**{k: tuple(v) if isinstance(v, list) else v
                       for k, v in d.items() if k in names})
@@ -146,7 +150,7 @@ def json_notes(s: str) -> List[str]:
     asked = d.get("compute_dtype", "bfloat16")
     notes = [f"compute dtype: the config asks {asked}, the port computes "
              f"in {COMPUTE_DTYPE} (TF32 off)"]
-    unread = sorted(set(d) - names - {"compute_dtype", "flow_type"})
+    unread = sorted(set(d) - names - {"compute_dtype"})
     if unread:
         notes.append("config keys the port does not read: "
                      + ", ".join(unread))

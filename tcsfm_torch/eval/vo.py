@@ -2,7 +2,9 @@
 
 Pair-wise (target, source) coupled inference along a sequence: the depth
 net over both frames, the coupled pose solver at ``cfg.iterations`` (the
-one-shot pose at 1), and the DNet ground-plane scale of each sample's
+one-shot pose at 1, which with ``flow_type='classical'`` also reads the
+Farneback flow pair of each window, computed on the evaluator's device
+by ``ops.flow.pose_flows``), and the DNet ground-plane scale of each sample's
 target depth. Then the shared metric tail: the fwd/inv fusion
 ``(fwd - inv) / 2``, and the unscaled, DNet-scaled and GT mean-norm-scaled
 trajectories with their errors.
@@ -32,6 +34,7 @@ from tcsfm_torch.eval.trajectory import ResultsLogger, compute_trajectory
 from tcsfm_torch.geom.warp import Sampler
 from tcsfm_torch.models.depth import DepthNet
 from tcsfm_torch.models.pose import PoseNet
+from tcsfm_torch.ops.flow import pose_flows
 from tcsfm_torch.ops.grid_sample import grid_sample
 from tcsfm_torch.solver.coupled import solve_pose, solve_pose_iteratively
 from tcsfm_torch.utils.helpers import (disp_to_depth, resolve_device,
@@ -70,7 +73,8 @@ class VOEvaluator:
               yaw_pert: float = 0.0):
         """(poses [S,B,6], poses_inv [S,B,6], DNet scale [B]) of a batch;
         ``trans_pert``/``yaw_pert`` are added to every initial pose's tz/ry
-        (the perturbation experiment)."""
+        (the perturbation experiment), on the iterative solver, which
+        refuses a pose net that takes flow channels."""
         cfg = self.cfg
         S, b = source_imgs.shape[0], target_img.shape[0]
         imgs = torch.cat([target_img, source_imgs.reshape(
@@ -79,8 +83,10 @@ class VOEvaluator:
                                   cfg.max_depth)[1]
         depths = depth_all.reshape((S + 1, b) + depth_all.shape[1:])
         if cfg.iterations == 1 and not (trans_pert or yaw_pert):
+            flows = (pose_flows(target_img, source_imgs)
+                     if cfg.flow_type == "classical" else None)
             poses, poses_inv = solve_pose(self.pose_net, target_img,
-                                          source_imgs)
+                                          source_imgs, flows)
         else:
             def pert(v):
                 return (torch.full((2 * S * b,), v, device=target_img.device)

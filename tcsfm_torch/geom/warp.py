@@ -1,4 +1,4 @@
-"""Inverse warping (counterpart of ``tcsfm/geom/warp.py:75-210``).
+"""Inverse warping (counterpart of ``tcsfm/geom/warp.py``).
 
 backproject → rigid transform → project → bilinear sample, NHWC,
 differentiable. The sampler is the port's ``grid_sample`` (the CUDA
@@ -93,3 +93,28 @@ def inverse_warp2(img: torch.Tensor, depth: torch.Tensor,
         warped_img, projected_depth = sampler(img, coords), None
     valid_mask = valid[..., None].to(img.dtype)
     return warped_img, valid_mask, projected_depth, computed_depth[..., None]
+
+
+def inverse_warp(img: torch.Tensor, depth: torch.Tensor, pose: torch.Tensor,
+                 K: torch.Tensor, rotation_mode: str = "euler",
+                 sampler: Sampler = grid_sample):
+    """The legacy single-output warp (``tcsfm/geom/warp.py:246-262``, the
+    reference's ``inverse_warp``): no depth resampling, and border
+    coordinates are not pushed out (``zeros_padding=False``), so the
+    sampler's own zero padding decides what lies outside.
+
+    Args:
+      img:   [B, H, W, C]; depth: [B, H, W] or [B, H, W, 1]; pose: [B, 6].
+      sampler: ``grid_sample`` (one value-kernel launch on the card) or
+             ``grid_sample_plain``.
+    Returns:
+      (warped_img [B, H, W, C], valid [B, H, W] bool).
+    """
+    if depth.ndim == 3:
+        depth = depth[..., None]
+    b, h, w, _ = img.shape
+    cam = backproject(depth, K)
+    pose_mat = pose_vec2mat(pose, rotation_mode)
+    coords, _, valid = _project_with_mask(cam, K, pose_mat, h, w,
+                                          zeros_padding=False)
+    return sampler(img.contiguous(), coords.contiguous()), valid

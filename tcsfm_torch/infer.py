@@ -70,7 +70,7 @@ def build_models(cfg: Config, device=None,
     if generator is None:
         generator = torch.Generator().manual_seed(0)
     depth_net = DepthNet(num_scales=cfg.num_scales)
-    pose_net = PoseNet()
+    pose_net = PoseNet(cfg.pose_input_channels)
     _init_weights(depth_net, generator, uniform=False)
     _init_weights(pose_net, generator, uniform=True)
     return depth_net.to(device).eval(), pose_net.to(device).eval()

@@ -84,8 +84,16 @@ def solve_disp(depth_apply: Apply, target_img: torch.Tensor,
 
 
 def solve_pose(pose_apply: Apply, target_img: torch.Tensor,
-               source_imgs: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+               source_imgs: torch.Tensor,
+               flows: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
     """One-shot (non-iterative) pose for each source.
+
+    Args:
+      flows: optional (flow_fwd, flow_back), each [S, B, H, W, 2]: the
+        extra channels of ``flow_type='classical'`` (``ops.flow.
+        batched_flow_pair``), after the forward pair [tgt 3, src 3] and
+        after the inverse pair [src 3, tgt 3], as imported weights expect.
 
     Returns (poses [S, B, 6], poses_inv [S, B, 6]).
     """
@@ -93,9 +101,28 @@ def solve_pose(pose_apply: Apply, target_img: torch.Tensor,
     tgt = target_img[None].expand(source_imgs.shape)
     fwd = torch.cat([tgt, source_imgs], -1)                  # [S, B, H, W, 6]
     inv = torch.cat([source_imgs, tgt], -1)
+    if flows is not None:
+        flow_fwd, flow_back = flows
+        fwd = torch.cat([fwd, flow_fwd], -1)                 # [S, B, H, W, 8]
+        inv = torch.cat([inv, flow_back], -1)
     stacked = torch.cat([fwd, inv]).reshape((2 * S * b,) + fwd.shape[2:])
     poses = pose_apply(stacked)
     return poses[:S * b].reshape(S, b, 6), poses[S * b:].reshape(S, b, 6)
+
+
+def refuse_flow_channels(pose_apply: Apply) -> None:
+    """Raise where a pose net that takes flow channels (``flow_type=
+    'classical'``) meets the iterative solver, which feeds it 6."""
+    channels = getattr(pose_apply, "in_channels", 6)
+    if channels != 6:
+        raise ValueError(
+            f"the iterative coupled solver feeds the pose net 6-channel "
+            f"pairs, but this pose net takes {channels} (flow_type="
+            f"'classical'): classical flow runs only on the one-shot pose "
+            f"(iterations == 1). The JAX package raises here too: its "
+            f"create_train_state builds an 8-channel pose net "
+            f"(tcsfm/train/trainer.py:93-94) that solve_pose_iteratively "
+            f"feeds 6-channel stacks (tcsfm/solver/coupled.py:163-165)")
 
 
 def solve_pose_iteratively(
@@ -122,7 +149,9 @@ def solve_pose_iteratively(
       num_iter:    number of coupled iterations (>= 1).
       depths:      [S+1, B, H, W, 1] (or a sequence): target depth first,
                    then source depths, full resolution.
-      pose_apply:  [N, H, W, 6] stacked pairs → [N, 6] pose vectors.
+      pose_apply:  [N, H, W, 6] stacked pairs → [N, 6] pose vectors; one
+                   that takes flow channels (``in_channels`` 8) raises
+                   (``refuse_flow_channels``).
       target_img:  [B, H, W, 3]; source_imgs: [S, B, H, W, 3].
       K:           [B, 3, 3] intrinsics.
       trans_pert / yaw_pert: optional [2SB]-broadcastable perturbations
@@ -142,6 +171,7 @@ def solve_pose_iteratively(
     """
     if num_iter < 1:
         raise ValueError(f"num_iter must be >= 1, got {num_iter}")
+    refuse_flow_channels(pose_apply)
     if not torch.is_tensor(depths):
         depths = torch.stack(list(depths))
     S, b = source_imgs.shape[0], target_img.shape[0]

@@ -9,8 +9,10 @@ sequence into trajectory errors. Both take the port's networks, put them
 in eval mode and run under ``torch.no_grad()`` on the networks' device:
 on the card the warps go through the sampler's CUDA kernel. The JAX
 functions' ``use_mxu_warp`` and band arguments pick its TPU sampler's
-modes and have no counterpart; ``flow_type="classical"`` is refused by
-``Config.from_json`` (not ported).
+modes and have no counterpart. With ``flow_type="classical"`` at
+``iterations == 1`` both pass the Farneback flow pair
+(``ops.flow.pose_flows``) to the one-shot pose; at more iterations the
+solver refuses the 8-channel pose net, as the JAX package's raises.
 """
 
 from __future__ import annotations
@@ -27,6 +29,7 @@ from tcsfm_torch.eval.vo import METRIC_SCALE, VOEvaluator
 from tcsfm_torch.geom.warp import Sampler, inverse_warp2
 from tcsfm_torch.models.depth import DepthNet
 from tcsfm_torch.models.pose import PoseNet
+from tcsfm_torch.ops.flow import pose_flows
 from tcsfm_torch.ops.grid_sample import grid_sample
 from tcsfm_torch.solver.coupled import (solve_disp, solve_pose,
                                         solve_pose_iteratively)
@@ -66,7 +69,9 @@ def depth_and_reconstruction_panels(cfg: Config, depth_net: DepthNet,
             disp_to_depth(d[0], cfg.min_depth, cfg.max_depth)[1]
             for d in disparities])
         if cfg.iterations == 1:
-            poses, _ = solve_pose(pose_net, tgt, src)
+            flows = (pose_flows(tgt, src) if cfg.flow_type == "classical"
+                     else None)
+            poses, _ = solve_pose(pose_net, tgt, src, flows)
         else:
             poses, _, _ = solve_pose_iteratively(
                 cfg.iterations, depths, pose_net, tgt, src, K,

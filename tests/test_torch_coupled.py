@@ -301,5 +301,7 @@ def test_config_reads_jax_config_json():
     assert (cfg.iterations, cfg.num_scales, cfg.min_depth, cfg.image_size) == \
         (3, 2, 0.1, (128, 448))
     assert Config.from_json(cfg.to_json()) == cfg
-    with pytest.raises(NotImplementedError):
-        Config.from_json(JaxConfig(flow_type="classical").to_json())
+    classical = Config.from_json(JaxConfig(flow_type="classical").to_json())
+    assert (classical.flow_type, classical.pose_input_channels) == \
+        ("classical", 8)
+    assert cfg.pose_input_channels == 6

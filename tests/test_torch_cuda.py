@@ -21,6 +21,10 @@ The evaluation CLIs: scaled disparities within 1e-5 (the plain sampler's
 run) and 1e-4 (the CPU's) of their range, 1/min_depth - 1/max_depth;
 ScanNet's fused pose vectors within 1e-5 and 1e-4; the warm-start gate's
 PFT t-ATE within the CPU's own one-ulp spread (its test's docstring).
+Classical flow: the Farneback pair and the classical VO's pose vectors
+and DNet scales card vs CPU within ``chip_smoke``'s limits of the CPU
+run's own spread with its images one ulp up; the legacy ``inverse_warp``
+kernel vs plain atol 1e-5.
 """
 
 import numpy as np
@@ -762,3 +766,100 @@ def test_golden_warm_start_gate_on_card(cuda, tmp_path):
     for gate in ("vo_pose_parity", "vo_ate_parity", "pft_loss_parity"):
         assert out["gates"][gate], (gate, out)
     assert out["pft_ate_delta_rel"] <= limit
+
+
+def test_flow_pair_on_card(cuda):
+    """``ops.flow.batched_flow_pair`` (plain PyTorch, no hand-written
+    kernel) on the card against the CPU, on two pairs of generated 64x96
+    frames, in pixels: within ``chip_smoke.FLOW_SPREAD_FACTOR`` x the CPU
+    run's own spread with its images one ulp up, at least
+    ``chip_smoke.FLOW_TOL`` (phase "flow"'s rule)."""
+    import chip_smoke
+    from tcsfm_torch.data.synthetic import make_synthetic_sequence
+    from tcsfm_torch.ops import flow
+
+    imgs = make_synthetic_sequence(4, (64, 96), seed=3).images
+    tgt = torch.from_numpy(np.ascontiguousarray(imgs[[0, 2]]))
+    src = torch.from_numpy(np.ascontiguousarray(imgs[[1, 3]]))
+
+    def px(t, s):
+        return torch.stack(flow.batched_flow_pair(t, s)).double().cpu() * 96
+
+    card, cpu = px(tgt.to(cuda), src.to(cuda)), px(tgt, src)
+    up = [torch.from_numpy(np.nextafter(x.numpy(), np.float32(2.0)))
+          for x in (tgt, src)]
+    spread = float((px(*up) - cpu).abs().max())
+    gap = float((card - cpu).abs().max())
+    limit = max(chip_smoke.FLOW_TOL, chip_smoke.FLOW_SPREAD_FACTOR * spread)
+    print(f"flow card vs CPU {gap:.3e} px (spread {spread:.3e}, limit "
+          f"{limit:.3e})")
+    assert torch.isfinite(card).all() and gap <= limit
+
+
+def test_evaluate_vo_classical_on_card(cuda, tmp_path):
+    """``evaluate_vo --synthetic --iterations 1`` with a classical-flow
+    model (the 8-channel pose net fed the Farneback pair) on the card: no
+    sampler launch; pose vectors and DNet scales against the CPU's within
+    ``chip_smoke``'s limits of the CPU run's own spread with its images
+    one ulp up (phase "sequence"'s rule), the printed errors within 1e-3."""
+    import chip_smoke
+    from tcsfm_torch.cli import evaluate_vo
+    from tcsfm_torch.cli.common import load_nets
+    from tcsfm_torch.data.synthetic import make_synthetic_sequence
+    from tcsfm_torch.train.checkpoint import save_checkpoint
+
+    torch.backends.cudnn.allow_tf32 = False
+    model_dir = str(tmp_path / "model")
+    cfg = Config(iterations=1, flow_type="classical")
+    nets = build_models(cfg, device="cpu",
+                        generator=torch.Generator().manual_seed(7))
+    chip_smoke.condition_like_trained(nets[0], torch)
+    save_checkpoint(model_dir, nets, epoch=1, best_val_loss=1.0, cfg=cfg,
+                    is_best=True)
+    syn = make_synthetic_sequence(24, (64, 96), seed=11)
+    chip_smoke.write_sequence(tmp_path / "data" / "ulp", syn,
+                              np.nextafter(syn.images, np.float32(2.0)))
+    preds = {}
+    for name, device, src in (
+            ("card", "cuda", ["--synthetic"]), ("cpu", "cpu", ["--synthetic"]),
+            ("cpu_ulp", "cpu", ["--data_dir", str(tmp_path / "data"),
+                                "--seqs", "ulp"])):
+        args = evaluate_vo.parse_args(
+            ["--model_dir", model_dir, "--iterations", "1", "--save_preds",
+             str(tmp_path / name)] + src)
+        chip_smoke.zero_counts(gs)
+        out = evaluate_vo.run(args, *load_nets(model_dir, device), device)
+        if name == "card":
+            assert chip_smoke.read_counts(gs) == (0, 0, 0)
+        key = "ulp" if name == "cpu_ulp" else "synthetic"
+        preds[name] = (out[key], chip_smoke.preds_of(
+            tmp_path / name / f"{key}_preds.npz"))
+    err = chip_smoke.preds_gap(preds["card"][1], preds["cpu"][1])
+    spread = chip_smoke.preds_gap(preds["cpu_ulp"][1], preds["cpu"][1])
+    print(f"classical VO card vs CPU: {chip_smoke.gaps_text(err, spread)}")
+    assert chip_smoke.within_spread(err, spread)
+    for k in ("errors_unscaled", "errors_dnet", "errors_gt_scaled"):
+        assert np.allclose(preds["card"][0][k][:2], preds["cpu"][0][k][:2],
+                           rtol=0, atol=1e-3)
+
+
+def test_inverse_warp_on_card(cuda):
+    """The legacy ``inverse_warp`` through the value kernel (one launch)
+    against the plain sampler at [6,192,640,3]: atol 1e-5, valid masks
+    equal."""
+    from tcsfm_torch.geom.warp import inverse_warp
+
+    n, h, w = 6, 192, 640
+    g = torch.Generator().manual_seed(8)
+    img = torch.rand((n, h, w, 3), generator=g).to(cuda)
+    depth = (1.0 + torch.rand((n, h, w, 1), generator=g)).to(cuda)
+    pose = (0.02 * torch.randn((n, 6), generator=g)).to(cuda)
+    K = torch.tensor([[0.58 * w, 0, w / 2], [0, 1.92 * h, h / 2],
+                      [0, 0, 1]]).expand(n, 3, 3).contiguous().to(cuda)
+    before = gs.LAUNCHES
+    out, valid = inverse_warp(img, depth, pose, K)
+    assert gs.LAUNCHES == before + 1
+    ref, ref_valid = inverse_warp(img, depth, pose, K,
+                                  sampler=gs.grid_sample_plain)
+    assert torch.equal(valid, ref_valid)
+    assert float((out - ref).abs().max()) <= 1e-5

@@ -169,7 +169,9 @@ def depth_nets():
     with the same weights."""
     model = JaxDepthNet(num_scales=1)
     imgs = np.random.RandomState(3).rand(2, 32, 64, 3).astype(np.float32)
-    variables = model.init(jax.random.PRNGKey(0), jnp.asarray(imgs))
+    # one compiled init: the same variables, bit for bit, as the eager
+    # init, which compiles every operation of the net on its own
+    variables = jax.jit(model.init)(jax.random.PRNGKey(0), jnp.asarray(imgs))
     variables = jax.tree_util.tree_map(lambda p: np.asarray(p) * 0.25,
                                        unfreeze(variables))
     net = DepthNet()
@@ -256,12 +258,18 @@ def _smooth_inputs(seed):
             np.broadcast_to(K, (B, 3, 3)).copy())
 
 
-@pytest.mark.parametrize("seed", [0, 1])
-def test_coupled_forward_through_the_tail_matches_jax(seed):
+@pytest.fixture(scope="module")
+def jax_state():
+    """JAX's seeded train state, initialised once for the module."""
     jcfg = JaxConfig(compute_dtype="float32", img_resolution="low",
                      use_mxu_warp=False, iterations=ITERS)
-    state, depth_model, pose_model = create_train_state(
-        jcfg, jax.random.PRNGKey(0), steps_per_epoch=10)
+    return (jcfg,) + create_train_state(jcfg, jax.random.PRNGKey(0),
+                                        steps_per_epoch=10)
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_coupled_forward_through_the_tail_matches_jax(seed, jax_state):
+    jcfg, state, depth_model, pose_model = jax_state
     params = jax.tree_util.tree_map(np.asarray, unfreeze(state.params))
     stats = jax.tree_util.tree_map(np.asarray, unfreeze(state.batch_stats))
     depth_params = _condition(params["depth"])
