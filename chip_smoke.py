@@ -34,6 +34,16 @@ Phases, each printing its elapsed seconds:
      losses bit-equal and gradients within the step's rounding limits, and
      the same step with the plain sampler from the same state;
   6. one training step on the card and on the CPU at a small input;
+ 6a. phase "dist": the data-parallel path (``tcsfm_torch.dist``) in a
+     one-rank NCCL group started in this process: the distributed
+     training step at phase 5's setting from the same state as the plain
+     step, its launches and collectives counted, its losses, gradients and
+     BatchNorm statistics held against the plain step's within the step's
+     own rounding limits, both steps timed in turns on CUDA events and the
+     gradients' all-reduce alone; then ``measure_scaling([1])`` (one
+     spawned rank) and ``dryrun_multichip(1)`` (the step and the
+     window-sharded sequence BA); a single card runs one NCCL rank, so the
+     parity of several ranks is held on the CPU (gloo, the tests);
  6b. the seventh main path, phase "train_cli": the training entry point
      (``tcsfm_torch.cli.train.main``) at full width on generated
      sequences, two epochs with validation, panels, trajectory eval,
@@ -125,12 +135,13 @@ import faulthandler
 import hashlib
 import itertools
 import json
+import math
 import statistics
 import subprocess
 import sys
 import time
 
-WATCHDOG_S = 540
+WATCHDOG_S = 720
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM, NVIDIA data sheet
 F32_FLOPS_PER_S = 67e12       # H100 SXM f32 outside the tensor cores
 H, W, B, S, ITERS = 192, 640, 6, 2, 4
@@ -189,6 +200,8 @@ REF_LOSS_TOL = 1e-5           # train step, card vs CPU, f32
 REF_GRAD_TOL_F32 = 5e-2
 REF_GRAD_TOL_F64 = 1e-4
 TRAIN_WARMUP, TRAIN_TIMED = 2, 5
+DIST_TIMED = 6                # distributed and plain steps each, in turns
+DIST_COLLECTIVE_REPS = 20     # the gradients' all-reduce, timed alone
 # phase "train_cli": the training entry point at full width on generated
 # sequences of 14 frames (12 windows each: 24 training windows, 4 steps
 # of B an epoch; 12 val windows, 2 batches; 12 test windows)
@@ -1468,10 +1481,12 @@ def step_grad_limits(spread, what):
 
 
 def step_grad_parity(torch, gs, train_step, forward_loss, state, batch,
-                     what, sampler=None):
+                     what, sampler=None, ours_step=None):
     """The kernel- vs plain-sampler training step from one state: the
-    kernel step (through ``sampler``, by default ``gs.grid_sample``), the
-    plain-sampler step, and the plain step's own spread (STEP_LOSS_SCALES),
+    kernel step (through ``sampler``, by default ``gs.grid_sample``, and
+    ``ours_step``, by default ``train_step``: phase "dist" passes the
+    distributed step), the plain-sampler step of ``train_step``, and the
+    plain step's own spread (STEP_LOSS_SCALES),
     all with cuDNN's deterministic algorithms, which take out the
     run-to-run order of cuDNN's backward sums. Losses within
     STEP_LOSS_TOL; each gradient within max(STEP_GRAD_TOL,
@@ -1481,8 +1496,8 @@ def step_grad_parity(torch, gs, train_step, forward_loss, state, batch,
     difference, the worst gradient relative L2, the worst spread and, for
     each tensor held above STEP_GRAD_TOL, its spread and limit."""
     with cudnn_deterministic(torch):
-        losses, ours = step_grads(torch, train_step, state, batch,
-                                  sampler or gs.grid_sample)
+        losses, ours = step_grads(torch, ours_step or train_step, state,
+                                  batch, sampler or gs.grid_sample)
         ref_losses, ref = step_grads(torch, train_step, state, batch,
                                      gs.grid_sample_plain)
         spreads = [rel_l2(rescaled_grads(torch, forward_loss, gs, state,
@@ -1750,6 +1765,148 @@ def phase_train_reference(torch, cfg, create_train_state, train_step,
         f"relative L2 {worst32:.2e} (limit {REF_GRAD_TOL_F32}, f32 "
         f"resolution); float64 (plain sampler) total diff {total_err:.2e}, "
         f"worst gradient relative L2 {worst64:.2e} (limit {REF_GRAD_TOL_F64})")
+
+
+def phase_dist(torch, gs, cfg, create_train_state, train_step,
+               forward_loss):
+    """Phase "dist": the data-parallel path (``tcsfm_torch.dist``) on the
+    card in a one-rank NCCL group started in this process on a free port.
+    At phase "train"'s setting (full width, 192x640, B=6, 4 iterations,
+    trained-like weights) the distributed step from the same state as the
+    plain step: its kernel launches (``step_launches``) and its
+    collectives counted on one step; its losses, gradients and BatchNorm
+    statistics held against the plain step's (``step_grad_parity``: the
+    step's own rounding limits); the two steps timed in turns on CUDA
+    events, and the collectives alone. Then ``measure_scaling([1])`` (one
+    spawned rank at the same size) and ``dryrun_multichip(1)``; the group
+    is destroyed. Returns the distributed step's launches."""
+    import copy
+    import functools
+
+    import torch.distributed as dist
+
+    from tcsfm_torch.dist import mesh as dm
+    from tcsfm_torch.dist.dryrun import BA_TOL, dryrun_multichip
+    from tcsfm_torch.dist.scaling import measure_scaling
+    from tcsfm_torch.train.trainer import all_reduce_grads
+
+    dm.init_group(0, 1, f"127.0.0.1:{dm.free_port()}")
+    try:
+        mesh = dm.make_mesh(1)
+        check(dist.get_backend() == "nccl" and mesh.group is not None
+              and mesh.device == torch.device("cuda", 0),
+              f"the one-rank group: {dist.get_backend()}, {mesh}")
+        state, batch = train_setting(torch, cfg, create_train_state)
+        dist_step = functools.partial(train_step, mesh=mesh)
+
+        sizes = []
+        real = dist.all_reduce
+
+        def counting(t, *args, **kwargs):
+            sizes.append(t.numel() * t.element_size())
+            return real(t, *args, **kwargs)
+
+        with cudnn_deterministic(torch):
+            ours, plain = copy.deepcopy(state), copy.deepcopy(state)
+            dist.all_reduce = counting
+            try:
+                zero_counts(gs)
+                losses = dist_step(ours, batch)
+                torch.cuda.synchronize()
+                counts = read_counts(gs)
+            finally:
+                dist.all_reduce = real
+            plain_losses = train_step(plain, batch)
+        expected = step_launches(ITERS, cfg.remat_coupled)
+        check(counts == expected, f"distributed step launches (fwd, "
+              f"bwd_coords, bwd_img) {counts}, expected {expected}")
+        check(losses["l_reconstruct_inverse"].item() > 0,
+              "distributed step: the inverse term is 0")
+        loss_err = max(abs(losses[k].item() - plain_losses[k].item())
+                       for k in plain_losses)
+        check(loss_err <= STEP_LOSS_TOL, f"distributed vs plain step losses "
+              f"differ by {loss_err} > {STEP_LOSS_TOL}")
+        stats = {k: (v, plain.depth_net.state_dict()[k]) for k, v in
+                 ours.depth_net.state_dict().items() if "running" in k}
+        stats_err = max((a - b).abs().max().item() for a, b in
+                        stats.values())
+        check(len(stats) == 40 and stats_err <= STEP_LOSS_TOL,
+              f"distributed vs plain step BatchNorm statistics differ by "
+              f"{stats_err} > {STEP_LOSS_TOL}")
+        say("dist", f"one-rank NCCL group on {mesh.device}; the distributed "
+            f"step at {H}x{W} B={B} S={S} iters={ITERS}: launches (fwd, "
+            f"bwd_coords, bwd_img) {counts}, expected {expected}; "
+            f"{len(sizes)} all-reduces a step, {sum(sizes) / 2**20:.3f} MiB "
+            f"(the gradient bucket {max(sizes) / 2**20:.3f} MiB); vs the "
+            f"plain step from the same state (cuDNN deterministic): "
+            f"max|loss diff| {loss_err:.3e}, BatchNorm statistics "
+            f"{stats_err:.3e} (limit {STEP_LOSS_TOL} each)")
+        _, loss_err, worst, spread, widened = step_grad_parity(
+            torch, gs, train_step, forward_loss, state, batch,
+            "distributed step vs plain-sampler plain step",
+            ours_step=dist_step)
+        say("dist", f"distributed (kernels) vs plain-sampler plain step from "
+            f"one state: max|loss diff| {loss_err:.3e} (limit "
+            f"{STEP_LOSS_TOL}), worst gradient relative L2 {worst:.3e} "
+            f"(limit {STEP_GRAD_TOL}, or {STEP_SPREAD_FACTOR}x the plain "
+            f"step's own spread where larger, at most {STEP_GRAD_CAP}; "
+            f"worst spread {spread:.3e}); {len(widened)} tensors widened")
+
+        steps = {"plain": (train_step, copy.deepcopy(state)),
+                 "dist": (dist_step, copy.deepcopy(state))}
+        times = {k: [] for k in steps}
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in "se")
+        for i in range(1 + DIST_TIMED):          # the first round warms up
+            for k in ("plain", "dist") if i % 2 else ("dist", "plain"):
+                step, st = steps[k]
+                start.record()
+                step(st, batch)
+                end.record()
+                torch.cuda.synchronize()
+                if i:
+                    times[k].append(start.elapsed_time(end))
+        _, st = steps["dist"]
+        bucket = sum(p.numel() for m in (st.depth_net, st.pose_net)
+                     for p in m.parameters())
+        start.record()
+        for _ in range(DIST_COLLECTIVE_REPS):
+            all_reduce_grads(mesh, st.depth_net, st.pose_net)
+        end.record()
+        torch.cuda.synchronize()
+        grads_ms = start.elapsed_time(end) / DIST_COLLECTIVE_REPS
+        flat = torch.zeros(bucket, device=mesh.device)
+        start.record()
+        for _ in range(DIST_COLLECTIVE_REPS):
+            dist.all_reduce(flat)
+        end.record()
+        torch.cuda.synchronize()
+        bucket_ms = start.elapsed_time(end) / DIST_COLLECTIVE_REPS
+        med = {k: statistics.median(v) for k, v in times.items()}
+        say("dist", "training step on CUDA events, in turns, "
+            + "; ".join(f"{k}: median {med[k]:.3f} ms (min {min(v):.3f}, max "
+                        f"{max(v):.3f}) over {len(v)}"
+                        for k, v in times.items())
+            + f"; distributed - plain {med['dist'] - med['plain']:+.3f} ms; "
+            f"the gradients' all-reduce alone (cat, NCCL all-reduce of "
+            f"{bucket} f32, copy back) {grads_ms:.3f} ms, the NCCL "
+            f"all-reduce of the bucket alone {bucket_ms:.3f} ms (means of "
+            f"{DIST_COLLECTIVE_REPS})")
+
+        rows = measure_scaling([1], batch_per_device=B, image_hw=(H, W),
+                               iterations=ITERS, timed_steps=3,
+                               verbose=False)
+        check(len(rows) == 1 and rows[0]["efficiency"] == 1.0
+              and all(v > 0 for v in rows[0].values()),
+              f"measure_scaling([1]): {rows}")
+        say("dist", f"measure_scaling([1]), one spawned rank on the card: "
+            f"{json.dumps(rows[0])}; no curve across cards is measured on "
+            f"one card")
+        dry = dryrun_multichip(1)
+        check(dry["ba_err"] <= BA_TOL and math.isfinite(dry["loss"]),
+              f"dryrun_multichip(1): {dry}")
+    finally:
+        dist.destroy_process_group()
+    return counts
 
 
 def phase_train_cli(torch, gs, dt, step_counts):
@@ -3610,6 +3767,10 @@ def main() -> int:
                           train_step, forward_loss, gs)
     say("train reference", f"phase took {time.monotonic() - t:.2f} s")
     t = time.monotonic()
+    dist_counts = phase_dist(torch, gs, cfg, create_train_state, train_step,
+                             forward_loss)
+    say("dist", f"phase took {time.monotonic() - t:.2f} s")
+    t = time.monotonic()
     cli_counts = phase_train_cli(torch, gs, dt, step_counts)
     say("train_cli", f"phase took {time.monotonic() - t:.2f} s")
     t = time.monotonic()
@@ -3642,7 +3803,7 @@ def main() -> int:
     # forward, PFT call; then per VO pass over the drive, per
     # run_sequential_pft call by refiner, of phase "train_cli"'s two
     # training CLI calls, of phase "eval"'s runs by CLI, and of phase
-    # "flow"'s paths (the value kernel only)
+    # "flow"'s paths (the value kernel only), and per distributed step
     seq_index = {"grid_sample_fwd": 0, "grid_sample_bwd_coords": 1,
                  "grid_sample_bwd_img": 2, "grid_sample_with_grads": 3}
     cli_index = dict(seq_index, decoder_tail=4)
@@ -3678,12 +3839,14 @@ def main() -> int:
         evals = {p: 0 if i is None else c[i] for p, c in eval_counts.items()}
         flows = {p: n if name == "grid_sample_fwd" else 0
                  for p, n in flow_counts.items()}
+        dist_step = 0 if i is None or i > 2 else dist_counts[i]
         kernels.append(dict(name=name, route="cuda", source=source,
                             replaces=replaces,
                             launches=fwd + step + sum(refine.values())
                             + tail_fwd + pft_call + vo_pass
                             + sum(seq_calls.values()) + train_cli
-                            + sum(evals.values()) + sum(flows.values()),
+                            + sum(evals.values()) + sum(flows.values())
+                            + dist_step,
                             launches_per_forward=fwd,
                             launches_per_train_step=step,
                             launches_per_refiner_call=refine,
@@ -3693,7 +3856,8 @@ def main() -> int:
                             launches_per_sequential_pft=seq_calls,
                             launches_per_train_cli=train_cli,
                             launches_per_eval=evals,
-                            launches_per_flow=flows, **row))
+                            launches_per_flow=flows,
+                            launches_per_dist_step=dist_step, **row))
     print(json.dumps({"kernels": kernels}), flush=True)
     faulthandler.cancel_dump_traceback_later()
     print(json.dumps({"ok": True, "device": {

@@ -22,8 +22,21 @@ computes in float32 with TF32 off, whatever ``--compute_dtype`` asks (the
 run prints both). ``--no_mxu_warp``, ``--fast_sampler`` and
 ``--mixed_sampler`` pick among the JAX package's TPU sampler modes,
 workarounds an f32 gather on the card does not need: the port has one
-sampler, exact in f32, and takes them without effect. ``--n_devices``
-above 1 raises: distribution is not ported (ROADMAP §1 item 6).
+sampler, exact in f32, and takes them without effect.
+
+Several cards: one process a card under ``torchrun`` (``torchrun
+--nproc_per_node 4 -m tcsfm_torch.cli.train ... --n_devices 4``), each
+rank on ``cuda:LOCAL_RANK`` with its rows of every global batch (the
+loaders are process-sliced) and the data-parallel step of
+``train.trainer``, which computes what one rank computes on the whole
+batch. ``--n_devices`` must be 0 (the launch's world size) or that world
+size, and ``--minibatch`` (the global batch) must divide by it: where the
+JAX package clamps ``--n_devices`` to a divisor of the minibatch, the
+launcher here fixes the number of processes, so the port raises. Only
+rank 0 writes the checkpoints, the logs, the panels and the trajectory
+evaluation (the files of a one-rank run on the same global batch); the
+others wait at a barrier after each. With ``--device cpu`` the ranks are
+gloo processes.
 ``--flow_type classical`` raises before the first step: the training
 step's iterative solver cannot take the 8-channel pose net, and the JAX
 package's step fails on it too (``build_config``).
@@ -38,6 +51,7 @@ import os
 import time
 
 import torch
+import torch.distributed as dist
 
 from tcsfm_torch.config import COMPUTE_DTYPE, Config
 from tcsfm_torch.data.dataset import SequenceData, SfMWindowDataset
@@ -45,6 +59,8 @@ from tcsfm_torch.data.loader import BatchLoader
 from tcsfm_torch.data.synthetic import (make_drive_sequence,
                                         make_synthetic_sequence)
 from tcsfm_torch.data.transforms import get_transforms
+from tcsfm_torch.dist.mesh import (initialize_distributed, make_mesh,
+                                   process_info)
 from tcsfm_torch.train.checkpoint import load_checkpoint, save_checkpoint
 from tcsfm_torch.train.logging import MetricsWriter
 from tcsfm_torch.train.trainer import Trainer, create_train_state
@@ -90,7 +106,8 @@ def parse_args(argv=None):
     p.add_argument("--mixed_sampler", action="store_true",
                    help="no effect: a precision mode of the TPU sampler")
     p.add_argument("--n_devices", type=int, default=0,
-                   help="cards for data parallelism: 0 or 1 (one card)")
+                   help="cards for data parallelism: 0 (the launch's "
+                        "world size) or the torchrun world size")
     p.add_argument("--synthetic", action="store_true",
                    help="train on generated synthetic sequences")
     p.add_argument("--synthetic_frames", type=int, default=40)
@@ -201,46 +218,79 @@ def write_visuals(writer: MetricsWriter, panels, est, step: int) -> None:
                          vis.plot_pose_components(est, "est"), step)
 
 
+def check_ranks(args, world: int, minibatch: int) -> None:
+    """``--n_devices`` against the launch: 0 or its world size, and a
+    global minibatch that divides over the ranks."""
+    if args.n_devices not in (0, world):
+        raise ValueError(
+            f"--n_devices {args.n_devices}, but this launch has {world} "
+            f"process(es): start one process a card with torchrun "
+            f"--nproc_per_node {args.n_devices} -m tcsfm_torch.cli.train "
+            f"... (the port takes its ranks from the launcher and does not "
+            f"clamp --n_devices as the JAX package does)")
+    if minibatch % world:
+        raise ValueError(f"--minibatch {minibatch} (the global batch) does "
+                         f"not divide over {world} ranks")
+
+
 def main(argv=None) -> Trainer:
     args = parse_args(argv)
-    if args.n_devices > 1:
-        raise NotImplementedError(
-            f"--n_devices {args.n_devices}: training on several cards is not "
-            f"ported yet (ROADMAP §1 item 6, distribution); the port trains "
-            f"on one")
     cfg = build_config(args)
-    device = resolve_device(args.device)
-    print(f"compute dtype: the run asks {args.compute_dtype}, the port "
-          f"computes in {COMPUTE_DTYPE} (TF32 off)")
+    joined = dist.is_initialized()          # a caller's group stays up
+    grouped = initialize_distributed(device=args.device)
+    try:
+        rank, world = process_info()
+        check_ranks(args, world, cfg.minibatch)
+        mesh = make_mesh(world, device=args.device) if grouped else None
+        return _train(args, cfg, mesh, rank, world)
+    finally:
+        if grouped and not joined:
+            dist.destroy_process_group()
+
+
+def _train(args, cfg: Config, mesh, rank: int, world: int) -> Trainer:
+    device = mesh.device if mesh is not None else resolve_device(args.device)
+    main_rank = rank == 0
+    if main_rank:
+        print(f"compute dtype: the run asks {args.compute_dtype}, the port "
+              f"computes in {COMPUTE_DTYPE} (TF32 off)")
+        if world > 1:
+            print(f"data parallel over {world} ranks, {cfg.minibatch // world}"
+                  f" of the {cfg.minibatch} rows each")
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
 
     train_ds, val_ds, test_ds, test_seqs = load_datasets(cfg, args)
-    train_loader = BatchLoader(train_ds, cfg.minibatch, shuffle=True)
-    val_loader = BatchLoader(val_ds, cfg.minibatch, shuffle=False)
+    train_loader = BatchLoader(train_ds, cfg.minibatch, shuffle=True,
+                               process_index=rank, process_count=world)
+    val_loader = BatchLoader(val_ds, cfg.minibatch, shuffle=False,
+                             process_index=rank, process_count=world)
     steps_per_epoch = max(len(train_loader), 1)
 
     state = create_train_state(cfg, device=device,
-                               steps_per_epoch=steps_per_epoch)
+                               steps_per_epoch=steps_per_epoch, mesh=mesh)
     start_epoch, best_val = 0, 1e5
     if cfg.load_from_checkpoint or cfg.load_best_model:
         state, start_epoch, best_val = load_checkpoint(
             cfg.pretrained_dir or cfg.ckpt_dir, state,
             load_best=cfg.load_best_model)
-        print(f"loaded checkpoint, starting at epoch {start_epoch}")
-    trainer = Trainer(state)
-    writer = MetricsWriter(os.path.join(cfg.ckpt_dir, "logs"))
+        if main_rank:
+            print(f"loaded checkpoint, starting at epoch {start_epoch}")
+    trainer = Trainer(state, mesh=mesh)
+    writer = (MetricsWriter(os.path.join(cfg.ckpt_dir, "logs"))
+              if main_rank else None)
     try:
         for epoch in range(start_epoch, cfg.num_epochs):
             train_ds.reseed(epoch)
             train_losses = trainer.run_epoch(train_loader, epoch, "train")
             val_losses = trainer.run_epoch(val_loader, epoch, "val")
-            for k, v in train_losses.items():
-                writer.add_scalar(f"train/{k}", v, epoch + 1)
-            for k, v in val_losses.items():
-                writer.add_scalar(f"val/{k}", v, epoch + 1)
+            if main_rank:
+                for k, v in train_losses.items():
+                    writer.add_scalar(f"train/{k}", v, epoch + 1)
+                for k, v in val_losses.items():
+                    writer.add_scalar(f"val/{k}", v, epoch + 1)
 
-            if epoch > 0:
+            if epoch > 0 and main_rank:
                 # panels and trajectory eval (run_mono_training.py:186-221)
                 panels = depth_and_reconstruction_panels(
                     cfg, state.depth_net, state.pose_net, val_ds)
@@ -256,18 +306,26 @@ def main(argv=None) -> Trainer:
                     write_visuals(writer, panels, est, epoch + 1)
                 except ImportError as e:  # visualization never stops training
                     print(f"validation visualization failed: {e}")
+            if mesh is not None:         # rank 0 wrote; the rest wait
+                dist.barrier()
 
             key_metric = (val_losses.get("l_reconstruct_forward", 0.0)
                           + val_losses.get("l_reconstruct_inverse", 0.0))
             is_best = key_metric < best_val and epoch > 0
             if is_best:
                 best_val = key_metric
-                print("Lowest validation loss (saving new best model)")
-            save_checkpoint(cfg.ckpt_dir, state, epoch, best_val, cfg=cfg,
-                            is_best=is_best)
+                if main_rank:
+                    print("Lowest validation loss (saving new best model)")
+            if main_rank:
+                save_checkpoint(cfg.ckpt_dir, state, epoch, best_val, cfg=cfg,
+                                is_best=is_best)
+            if mesh is not None:         # rank 0 wrote; the rest wait
+                dist.barrier()
     finally:
-        writer.close()
-    print("Training complete")
+        if writer is not None:
+            writer.close()
+    if main_rank:
+        print("Training complete")
     return trainer
 
 

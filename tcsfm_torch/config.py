@@ -12,8 +12,10 @@ as in the JAX package (``ops/flow.py``). ``to_json`` adds
 ``"compute_dtype": "float32"`` (the port computes in float32 with TF32
 off), so the JAX package reads a file the port wrote as the same run;
 ``json_notes`` names what the port does not take from a file the JAX
-package wrote (another compute dtype, its TPU sampler and mesh fields),
-and the CLIs print it.
+package wrote (another compute dtype, its TPU sampler fields), and the
+CLIs print it. ``mesh_shape``/``mesh_axes`` are read and written as the
+JAX package's; the port's data parallelism takes its ranks from the
+launcher (``tcsfm_torch.dist``), not from them.
 ``l_ssim=False`` is refused by both constructors: the loss stack's diff
 image then keeps its 3 channels, which the JAX package's loss cannot take
 either. The port does not import ``tcsfm``: its ``__init__`` pulls in JAX.
@@ -94,6 +96,11 @@ class Config:
     # instead of keeping their activations (tcsfm/config.py:105)
     remat_coupled: bool = True
 
+    # distribution (tcsfm/config.py:108-109): carried for the config file;
+    # the ranks come from the launcher (tcsfm_torch.dist.make_mesh)
+    mesh_shape: Tuple[int, ...] = (1,)
+    mesh_axes: Tuple[str, ...] = ("data",)
+
     # checkpointing (tcsfm/config.py:112-115)
     ckpt_dir: str = "results/default"
     load_from_checkpoint: bool = False
@@ -119,6 +126,9 @@ class Config:
     def pose_input_channels(self) -> int:
         return 8 if self.flow_type == "classical" else 6
 
+    def replace(self, **kw) -> "Config":
+        return dataclasses.replace(self, **kw)
+
     def to_json(self) -> str:
         d = dict(dataclasses.asdict(self), compute_dtype=COMPUTE_DTYPE)
         return json.dumps(d, indent=2, sort_keys=True)
@@ -143,7 +153,7 @@ class Config:
 def json_notes(s: str) -> List[str]:
     """Lines naming what the port does not take from the config JSON ``s``:
     the compute dtype it asks for beside the port's, and its keys that
-    ``Config`` has no field for (the JAX package's TPU sampler and mesh
+    ``Config`` has no field for (the JAX package's TPU sampler
     settings)."""
     d = json.loads(s)
     names = {f.name for f in dataclasses.fields(Config)}
@@ -182,3 +192,6 @@ class PFTOptions:
     l_smooth: bool = False
     l_smooth_weight: float = 0.05
     l_pose_consist: bool = False
+
+    def replace(self, **kw) -> "PFTOptions":
+        return dataclasses.replace(self, **kw)

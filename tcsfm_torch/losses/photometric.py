@@ -10,6 +10,17 @@ pairwise terms of a scale as one packed warp of 2·S·B, as the JAX package
 does; its warp samples the source image (data) and the source depth
 (differentiable) in one 4-channel call.
 
+Data parallelism (``mesh``, a ``tcsfm_torch.dist.Mesh``): each rank holds
+its rows of the global batch and computes its share of the global batch's
+loss, so that the shares sum over the ranks to the JAX package's loss on
+that batch and so do their gradients. A masked mean reduces its numerator
+on the rank and divides by the mask count of the global batch, all-reduced
+(it carries no gradient); the ``MIN_PIXELS`` guard reads that global count,
+which a rank's own count can fall under where the global one does not. The
+plain means (smoothness, the forward reconstruction, pose consistency) are
+scaled by the rank's share of the rows, ``1 / world_size`` (the ranks hold
+equal rows, ``dist.shard_batch``). With no mesh nothing changes.
+
 Gradients follow JAX's at ties: ``_clip`` is ``jnp.clip``'s
 maximum-then-minimum, and the forward reconstruction's min over sources
 is ``torch.amin``; both split the gradient between equal values, where
@@ -18,12 +29,13 @@ is ``torch.amin``; both split the gradient between equal values, where
 
 from __future__ import annotations
 
-from typing import Dict, Sequence
+from typing import Dict, Optional, Sequence
 
 import torch
 import torch.nn.functional as F
 
 from tcsfm_torch.config import Config
+from tcsfm_torch.dist.mesh import Mesh
 from tcsfm_torch.geom.warp import Sampler, inverse_warp2
 from tcsfm_torch.ops.grid_sample import grid_sample
 from tcsfm_torch.utils.helpers import disp_to_depth
@@ -79,11 +91,24 @@ def pose_consistency_loss(poses: torch.Tensor,
     return (poses + poses_inv).abs().mean(dim=(1, 2)).sum()
 
 
+def share(mesh: Optional[Mesh]) -> float:
+    """This rank's share of the global batch's rows (1 with no mesh)."""
+    return 1.0 if mesh is None else 1.0 / mesh.world_size
+
+
+def _global_count(total: torch.Tensor, mesh: Optional[Mesh]) -> torch.Tensor:
+    """A mask count over the global batch: ``total`` with no mesh, else its
+    sum over the ranks (no gradient)."""
+    return total if mesh is None else mesh.all_reduce(total.detach().clone())
+
+
 def mean_on_mask(diff: torch.Tensor, valid_mask: torch.Tensor,
-                 min_pixels: int = MIN_PIXELS) -> torch.Tensor:
-    """Masked mean, 0 when no more than ``min_pixels`` pixels are valid."""
+                 min_pixels: int = MIN_PIXELS,
+                 mesh: Optional[Mesh] = None) -> torch.Tensor:
+    """Masked mean, 0 when no more than ``min_pixels`` pixels are valid;
+    with a mesh, this rank's share of the global batch's masked mean."""
     mask = valid_mask.expand_as(diff)
-    total = mask.sum()
+    total = _global_count(mask.sum(), mesh)
     mean_val = (diff * mask).sum() / total.clamp_min(1.0)
     return torch.where(total > min_pixels, mean_val, mean_val.new_zeros(()))
 
@@ -126,9 +151,11 @@ def pairwise_loss(cfg: Config, tgt_img, ref_img, tgt_depth, ref_depth, pose,
 
 
 def _grouped_mean_on_mask(diff: torch.Tensor, mask: torch.Tensor,
-                          min_pixels: int = MIN_PIXELS) -> torch.Tensor:
-    """Per-group masked means with the sparse guard: [G, B, H, W, 1] → [G]."""
-    total = mask.sum(dim=(1, 2, 3, 4))
+                          min_pixels: int = MIN_PIXELS,
+                          mesh: Optional[Mesh] = None) -> torch.Tensor:
+    """Per-group masked means with the sparse guard: [G, B, H, W, 1] → [G];
+    with a mesh, this rank's shares of the global batch's."""
+    total = _global_count(mask.sum(dim=(1, 2, 3, 4)), mesh)
     val = (diff * mask).sum(dim=(1, 2, 3, 4)) / total.clamp_min(1.0)
     return torch.where(total > min_pixels, val, torch.zeros_like(val))
 
@@ -147,8 +174,10 @@ def compute_losses(cfg: Config, source_imgs: torch.Tensor,
                    poses_inv: torch.Tensor,
                    disparities: Sequence[Sequence[torch.Tensor]],
                    K: torch.Tensor,
-                   sampler: Sampler = grid_sample) -> Dict[str, torch.Tensor]:
-    """The multi-scale loss dict (losses.py:75-140).
+                   sampler: Sampler = grid_sample,
+                   mesh: Optional[Mesh] = None) -> Dict[str, torch.Tensor]:
+    """The multi-scale loss dict (losses.py:75-140); with a mesh, this
+    rank's share of each term of the global batch's.
 
     Args:
       source_imgs: [S, B, H, W, 3] (clean stream); target_img: [B, H, W, 3].
@@ -157,6 +186,7 @@ def compute_losses(cfg: Config, source_imgs: torch.Tensor,
                    frame f (0 = target) at scale s.
       K:           [B, 3, 3] intrinsics.
       sampler:     the warp's sampler (``ops.grid_sample``).
+      mesh:        the data mesh the batch is sharded over, or None.
 
     Returns l_reconstruct_inverse / l_reconstruct_forward / l_depth /
     l_smooth / total as 0-d tensors, each divided by num_scales, scale
@@ -164,6 +194,7 @@ def compute_losses(cfg: Config, source_imgs: torch.Tensor,
     """
     S = source_imgs.shape[0]
     b, h, w, _ = target_img.shape
+    part = share(mesh)
     zero = target_img.new_zeros(())
     losses = {"l_reconstruct_inverse": zero, "l_reconstruct_forward": zero,
               "l_depth": zero, "l_smooth": zero}
@@ -186,11 +217,12 @@ def compute_losses(cfg: Config, source_imgs: torch.Tensor,
 
         if cfg.l_smooth:
             losses["l_smooth"] = losses["l_smooth"] + (
-                cfg.l_smooth_weight * smooth_loss(disp, target_img)
+                cfg.l_smooth_weight * smooth_loss(disp, target_img) * part
             ) / (2 ** scale)
             for j in range(S):
                 losses["l_smooth"] = losses["l_smooth"] + (
-                    cfg.l_smooth_weight * smooth_loss(sdisps[j], source_imgs[j])
+                    cfg.l_smooth_weight
+                    * smooth_loss(sdisps[j], source_imgs[j]) * part
                 ) / (2 ** scale)
 
         if not cfg.l_reconstruction:
@@ -215,15 +247,17 @@ def compute_losses(cfg: Config, source_imgs: torch.Tensor,
             n_groups = 2 * S if cfg.l_inverse else S
             losses["l_depth"] = losses["l_depth"] + (
                 cfg.l_depth_consist_weight
-                * _grouped_mean_on_mask(dd_g[:n_groups], mask_g[:n_groups]).sum())
+                * _grouped_mean_on_mask(dd_g[:n_groups], mask_g[:n_groups],
+                                        mesh=mesh).sum())
 
         # forward: min over sources, unmasked mean (losses.py:129-132)
         losses["l_reconstruct_forward"] = losses["l_reconstruct_forward"] + (
-            torch.amin(diff_g[:S, ..., 0], dim=0).mean())
+            torch.amin(diff_g[:S, ..., 0], dim=0).mean() * part)
 
         if cfg.l_inverse:
             losses["l_reconstruct_inverse"] = losses["l_reconstruct_inverse"] + (
-                0.3 * _grouped_mean_on_mask(diff_g[S:], mask_g[S:]).sum())
+                0.3 * _grouped_mean_on_mask(diff_g[S:], mask_g[S:],
+                                            mesh=mesh).sum())
 
     total = zero
     for key in list(losses):

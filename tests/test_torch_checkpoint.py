@@ -301,7 +301,8 @@ def test_config_crosses_with_its_compute_dtype(tmp_path, capsys):
     assert out[0] == ("compute dtype: the config asks bfloat16, the port "
                       "computes in float32 (TF32 off)")
     assert out[1].startswith("config keys the port does not read: ")
-    assert "use_mxu_warp" in out[1] and "mesh_shape" in out[1]
-    # the training CLI's data, remat and checkpoint fields are read now
-    for key in ("train_seq", "remat_coupled", "ckpt_dir", "pretrained_dir"):
+    assert "use_mxu_warp" in out[1]
+    # the training CLI's data, remat, mesh and checkpoint fields are read
+    for key in ("train_seq", "remat_coupled", "mesh_shape", "mesh_axes",
+                "ckpt_dir", "pretrained_dir"):
         assert key not in out[1]

@@ -277,6 +277,50 @@ def test_train_step_on_card(cuda):
     assert all(torch.isfinite(v) for v in losses.values())
 
 
+def test_distributed_step_at_world_size_one(cuda):
+    """The data-parallel step (``train_step(..., mesh=...)``) in a one-rank
+    NCCL group on ``cuda:0`` against the plain step from the same state
+    (``card_test_setting``): the same launches, losses within 1e-6 and
+    gradients within the step's rounding limits
+    (``chip_smoke.step_grad_parity``), the BatchNorm statistics within
+    1e-6; the group is destroyed after."""
+    import copy
+    import functools
+
+    import torch.distributed as dist
+
+    import chip_smoke
+    from tcsfm_torch.dist import mesh as dm
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    state, batch = chip_smoke.card_test_setting(torch, create_train_state)
+    dm.init_group(0, 1, f"127.0.0.1:{dm.free_port()}")
+    try:
+        mesh = dm.make_mesh(1)
+        assert dist.get_backend() == "nccl"
+        assert mesh.device == torch.device("cuda", 0)
+        dist_step = functools.partial(train_step, mesh=mesh)
+        before = (gs.LAUNCHES, gs.LAUNCHES_BWD_COORDS, gs.LAUNCHES_BWD_IMG)
+        losses, *_ = chip_smoke.step_grad_parity(
+            torch, gs, train_step, forward_loss, state, batch,
+            "distributed vs plain step", ours_step=dist_step)
+        assert (gs.LAUNCHES - before[0], gs.LAUNCHES_BWD_COORDS - before[1],
+                gs.LAUNCHES_BWD_IMG - before[2]) == chip_smoke.step_launches(
+                    chip_smoke.ITERS, remat=True)
+        assert all(torch.isfinite(v) for v in losses.values())
+        with chip_smoke.cudnn_deterministic(torch):
+            ours, plain = copy.deepcopy(state), copy.deepcopy(state)
+            dist_step(ours, batch)
+            train_step(plain, batch)
+        ref = plain.depth_net.state_dict()
+        for k, v in ours.depth_net.state_dict().items():
+            if "running" in k:
+                assert (v - ref[k]).abs().max().item() <= 1e-6, k
+    finally:
+        dist.destroy_process_group()
+
+
 class _ScaledBackward(torch.autograd.Function):
     """The identity forward; its backward scales the gradient by 1 + 1e-3."""
 

@@ -6,14 +6,20 @@ its ``remat_coupled`` and its metric writer.
   resumed with ``--load_from_checkpoint`` for a third: the files, the
   scalars of every epoch (the test sequence's from the second on), the
   best model; the resumed run starts at epoch 2 with ``step`` and the
-  Adam state bit-equal to what was saved. ``--n_devices 2`` raises; a
-  failure planted in ``trajectory_eval`` is not swallowed; a missing
+  Adam state bit-equal to what was saved. ``--n_devices 2`` without a
+  launcher raises, naming torchrun; a failure planted in
+  ``trajectory_eval`` is not swallowed; a missing
   matplotlib and PIL are, and the scalars are still written. The
   real-data branch of ``load_datasets`` reads sequence files written
   here. TensorBoard
   is kept out of these runs (its import here pulls TensorFlow, ~17 s):
   images go to PNG files; ``test_metrics_writer`` drives the TensorBoard
   branch through a stand-in module.
+* Two gloo ranks (``tcsfm_torch.dist.mesh.launch``, run beside the
+  one-rank CLI): the same CLI run at the same global batch of 2, one row a
+  rank, writes the same files and a checkpoint within the step's f32
+  limit of the one-rank one (see ``test_two_ranks_write_the_one_rank_run``);
+  only rank 0 writes, and the two ranks end with bit-equal weights.
 * ``remat_coupled``: one training step at 64x96, B=2, S=2, 4 iterations,
   f32, with it on and off from the same state gives bit-equal losses,
   parameters and BatchNorm statistics (the recomputation repeats the same
@@ -29,19 +35,23 @@ import os
 import shutil
 import sys
 import types
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import pytest
 import torch
 
 import chip_smoke
+import torch_dist_ranks
 from tcsfm_torch.cli import train as cli
 from tcsfm_torch.config import Config
 from tcsfm_torch.data.synthetic import make_synthetic_sequence
+from tcsfm_torch.dist.mesh import launch
 from tcsfm_torch.infer import build_models
 from tcsfm_torch.ops import grid_sample as gs
 from tcsfm_torch.solver.coupled import solve_pose_iteratively
 from tcsfm_torch.train import trainer
+from tcsfm_torch.train.checkpoint import load_checkpoint, save_checkpoint
 from tcsfm_torch.train.logging import MetricsWriter
 from test_torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
@@ -68,10 +78,37 @@ def assert_adam_equal(a, b):
             assert torch.equal(a[i][k], b[i][k]), (i, k)
 
 
+STEP_TOL = 0.5
+ONE_STEP = [("3" if a == "4" else a) for a in ARGS] + [
+    "--load_best_model", "--num_epochs", "2"]  # 3 frames: 2 windows, 1 step
+
+
 @pytest.fixture(scope="module")
-def run(tmp_path_factory):
+def two_ranks(tmp_path_factory):
+    """One training step of the CLI (``ONE_STEP``, epoch 1 from
+    trained-like weights) on two gloo ranks, started in the background:
+    the arguments without ``--results_dir``, the run's directory and the
+    future of the ranks' results. At the raw init f32 does not resolve the
+    coupled solver's poses (ROADMAP §3), so the two runs start from a
+    checkpoint of conditioned nets."""
+    pretrained = str(tmp_path_factory.mktemp("pretrained"))
+    nets = build_models(Config(), device="cpu")
+    chip_smoke.condition_like_trained(nets[0], torch)
+    save_checkpoint(pretrained, nets, epoch=1, best_val_loss=1.0,
+                    cfg=Config(), is_best=True)
+    args = ONE_STEP + ["--pretrained_dir", pretrained]
+    results = str(tmp_path_factory.mktemp("two_ranks"))
+    with ThreadPoolExecutor(1) as pool:
+        yield args, os.path.join(results, "run"), pool.submit(
+            launch, torch_dist_ranks.cli_rank, 2,
+            (args + ["--results_dir", results],), device="cpu")
+
+
+@pytest.fixture(scope="module")
+def run(tmp_path_factory, two_ranks):
     """Two epochs of the CLI; the run's directory, its trainer and its
-    Adam state at the end (the state saved)."""
+    Adam state at the end (the state saved). The two-rank run of the same
+    epochs runs beside it."""
     results = str(tmp_path_factory.mktemp("results"))
     with pytest.MonkeyPatch.context() as mp:
         mp.setitem(sys.modules, "torch.utils.tensorboard", None)
@@ -153,8 +190,88 @@ def test_trajectory_failure_is_not_swallowed(run, tmp_path, monkeypatch):
 
 
 def test_several_devices_raise(tmp_path):
-    with pytest.raises(NotImplementedError, match="ROADMAP §1 item 6"):
+    """``--n_devices 2`` in a single process (no launcher) names the
+    launch it needs; so does a global minibatch that does not divide."""
+    with pytest.raises(ValueError, match="torchrun --nproc_per_node 2"):
         cli.main(ARGS + ["--n_devices", "2", "--results_dir", str(tmp_path)])
+    with pytest.raises(ValueError, match="does not divide over 2 ranks"):
+        cli.check_ranks(cli.parse_args(ARGS + ["--minibatch", "3"]), 2, 3)
+
+
+def _checkpoint_nets(args):
+    """The nets of ``--pretrained_dir``'s best model."""
+    d = args[args.index("--pretrained_dir") + 1]
+    state = trainer.create_train_state(Config(), device="cpu")
+    state, _, _ = load_checkpoint(d, state, load_best=True)
+    return state.depth_net, state.pose_net
+
+
+def _checkpoint(run_dir):
+    """The checkpoint's epoch, tensors by name and Adam first moments by
+    parameter name."""
+    state = trainer.create_train_state(Config(), device="cpu")
+    state, epoch, _ = load_checkpoint(run_dir, state, load_best=False)
+    nets = (("depth", state.depth_net), ("pose", state.pose_net))
+    moments = state.optimizer.state_dict()["state"]
+    names = [f"{n}.{k}" for n, m in nets for k, _ in m.named_parameters()]
+    return epoch, {f"{n}.{k}": v for n, m in nets
+                   for k, v in m.state_dict().items()}, {
+        k: moments[i]["exp_avg"] for i, k in enumerate(names)}
+
+
+def test_two_ranks_write_the_one_rank_checkpoint(tmp_path, monkeypatch,
+                                                 two_ranks):
+    """One step of the CLI on two ranks, a row of the global batch of 2
+    each, against the same step on one rank: the same files; the train
+    scalars (the global batch's losses before the step) within 1e-5; a
+    checkpoint within the step's f32 limit: the Adam first moments (0.1 x
+    the gradient) within 5e-2 relative L2 a tensor, the f32 gradient limit
+    of tests/test_torch_train.py (read: 1.6e-2), and the BatchNorm
+    statistics within 1e-5. Adam's first step is lr x sign(gradient), so
+    where f32 does not resolve a gradient element's sign the runs step
+    apart: the parameters' steps within STEP_TOL relative L2 a tensor
+    (read: 0.177; per-rank BatchNorm statistics flip about half the signs,
+    ~1.4), and the test trajectory's errors after the step within 5%
+    (read: 1.5%). The gradient of ``pose.conv1.0.bias`` is analytically 0
+    (a one-channel-a-group GroupNorm follows) and is held as small."""
+    monkeypatch.setitem(sys.modules, "torch.utils.tensorboard", None)
+    args, two_dir, future = two_ranks
+    loop = cli.main(args + ["--results_dir", str(tmp_path)])
+    one_dir = os.path.join(str(tmp_path), "run")
+    ranks = future.result(timeout=600)
+    assert [r["step"] for r in ranks] == [1, 1] and loop.state.step == 1
+    assert ranks[0]["digest"] == ranks[1]["digest"]
+    assert sorted(os.listdir(two_dir)) == sorted(os.listdir(one_dir))
+    assert sorted(os.listdir(os.path.join(two_dir, "logs"))) == sorted(
+        os.listdir(os.path.join(one_dir, "logs")))
+    one, two = scalars(one_dir), scalars(two_dir)
+    assert sorted(one) == sorted(two) and ("test/t_ate", 2) in one
+    for key, v in one.items():
+        if key[0].startswith("train/"):
+            assert abs(two[key] - v) <= 1e-5, (key, two[key], v)
+        elif np.isfinite(v):
+            assert abs(two[key] - v) <= 0.05 * abs(v), (key, two[key], v)
+        else:
+            assert not np.isfinite(two[key]), key
+    init = {f"{n}.{k}": v for n, m in zip(("depth", "pose"),
+                                          _checkpoint_nets(args))
+            for k, v in m.state_dict().items()}
+    (e1, w1, m1), (e2, w2, m2) = _checkpoint(one_dir), _checkpoint(two_dir)
+    assert e1 == e2 == 2          # resumes after epoch 1
+    largest = max(a.norm().item() for a in m1.values())
+    for k, a in m1.items():
+        if k == "pose.conv1.0.bias":
+            assert max(a.norm(), m2[k].norm()).item() <= 1e-6 * largest
+        else:
+            assert ((m2[k] - a).norm() / a.norm()).item() <= 5e-2, k
+    for k, v in w1.items():
+        if not v.is_floating_point():
+            assert torch.equal(v, w2[k]), k
+        elif "running" in k:
+            assert (w2[k] - v).abs().max().item() <= 1e-5, k
+        elif k != "pose.conv1.0.bias":
+            step = (v - init[k]).norm()
+            assert ((w2[k] - v).norm() / step).item() <= STEP_TOL, k
 
 
 def test_the_card_by_default_and_tpu_flags_accepted(tmp_path, monkeypatch):
