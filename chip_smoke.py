@@ -40,7 +40,10 @@ Phases, each printing its elapsed seconds:
      step, its launches and collectives counted, its losses, gradients and
      BatchNorm statistics held against the plain step's within the step's
      own rounding limits, both steps timed in turns on CUDA events and the
-     gradients' all-reduce alone; then ``measure_scaling([1])`` (one
+     gradients' all-reduce alone; BatchNorm's global-statistics path
+     (the one of several ranks, through the NCCL all-reduces) held
+     against the one-card path at the depth net's first BatchNorm, in
+     float64 and float32; then ``measure_scaling([1])`` (one
      spawned rank) and ``dryrun_multichip(1)`` (the step and the
      window-sharded sequence BA); a single card runs one NCCL rank, so the
      parity of several ranks is held on the CPU (gloo, the tests);
@@ -202,6 +205,13 @@ REF_GRAD_TOL_F64 = 1e-4
 TRAIN_WARMUP, TRAIN_TIMED = 2, 5
 DIST_TIMED = 6                # distributed and plain steps each, in turns
 DIST_COLLECTIVE_REPS = 20     # the gradients' all-reduce, timed alone
+# BatchNorm's global-statistics path (``_global_forward``) against the
+# one-card path at the depth net's first BatchNorm (B x 64 x H/2 x W/2):
+# the largest difference of output, input/weight/bias gradients and running
+# statistics, relative to the tensor's largest magnitude. The two compute
+# the same statistics in different orders (two passes of sums against the
+# one-card kernel's), so they differ by rounding alone
+BN_GLOBAL_TOL = {"float64": 1e-10, "float32": 1e-4}
 # phase "train_cli": the training entry point at full width on generated
 # sequences of 14 frames (12 windows each: 24 training windows, 4 steps
 # of B an epoch; 12 val windows, 2 batches; 12 test windows)
@@ -1767,6 +1777,36 @@ def phase_train_reference(torch, cfg, create_train_state, train_step,
         f"worst gradient relative L2 {worst64:.2e} (limit {REF_GRAD_TOL_F64})")
 
 
+def bn_global_parity(torch, mesh, dtype):
+    """``BatchNorm2d._global_forward`` (the path of two or more ranks,
+    through ``mesh``'s all-reduces) against the one-card path on the same
+    input, at the depth net's first BatchNorm's shape in phase "train"
+    (B x 64 x H/2 x W/2) in ``dtype``: the output, the gradients of input,
+    weight and bias under ``(y * cos(y)).sum()`` and the running
+    statistics after the call. Returns the largest difference relative to
+    each tensor's largest magnitude, by name."""
+    from tcsfm_torch.models.layers import BatchNorm2d
+
+    gen = torch.Generator(device=mesh.device).manual_seed(0)
+    x = torch.randn(B, 64, H // 2, W // 2, generator=gen, dtype=dtype,
+                    device=mesh.device) * 2 + 1
+    names = ("output", "d_input", "d_weight", "d_bias", "running_mean",
+             "running_var")
+    outs = []
+    for path in ("one card", "global"):
+        bn = BatchNorm2d(64).to(device=mesh.device, dtype=dtype).train()
+        with torch.no_grad():
+            bn.weight.copy_(torch.linspace(0.5, 2.0, 64))
+            bn.bias.copy_(torch.linspace(-1.0, 1.0, 64))
+        xi = x.clone().requires_grad_(True)
+        y = bn(xi) if path == "one card" else bn._global_forward(xi, mesh)
+        (y * torch.cos(y)).sum().backward()
+        outs.append((y.detach(), xi.grad, bn.weight.grad, bn.bias.grad,
+                     bn.running_mean.clone(), bn.running_var.clone()))
+    return {k: ((a - b).abs().max() / b.abs().max()).item()
+            for k, a, b in zip(names, *outs)}
+
+
 def phase_dist(torch, gs, cfg, create_train_state, train_step,
                forward_loss):
     """Phase "dist": the data-parallel path (``tcsfm_torch.dist``) on the
@@ -1776,10 +1816,12 @@ def phase_dist(torch, gs, cfg, create_train_state, train_step,
     plain step: its kernel launches (``step_launches``) and its
     collectives counted on one step; its losses, gradients and BatchNorm
     statistics held against the plain step's (``step_grad_parity``: the
-    step's own rounding limits); the two steps timed in turns on CUDA
-    events, and the collectives alone. Then ``measure_scaling([1])`` (one
-    spawned rank at the same size) and ``dryrun_multichip(1)``; the group
-    is destroyed. Returns the distributed step's launches."""
+    step's own rounding limits); ``bn_global_parity`` in float64 and
+    float32 (at world size 1 the step takes the one-card BatchNorm, so the
+    path of several ranks is held here on its own); the two steps timed in
+    turns on CUDA events, and the collectives alone. Then
+    ``measure_scaling([1])`` (one spawned rank at the same size) and
+    ``dryrun_multichip(1)``; the group is destroyed. Returns the distributed step's launches."""
     import copy
     import functools
 
@@ -1830,6 +1872,16 @@ def phase_dist(torch, gs, cfg, create_train_state, train_step,
                  ours.depth_net.state_dict().items() if "running" in k}
         stats_err = max((a - b).abs().max().item() for a, b in
                         stats.values())
+        for dtype, limit in BN_GLOBAL_TOL.items():
+            errs = bn_global_parity(torch, mesh, getattr(torch, dtype))
+            check(max(errs.values()) <= limit, f"BatchNorm's global path vs "
+                  f"the one-card path, {dtype}: {errs} (limit {limit})")
+            say("dist", f"BatchNorm's global-statistics path "
+                f"(_global_forward, NCCL all-reduces) vs the one-card path "
+                f"at {B}x64x{H // 2}x{W // 2} {dtype}: largest relative "
+                f"difference "
+                + ", ".join(f"{k} {v:.3e}" for k, v in errs.items())
+                + f" (limit {limit})")
         check(len(stats) == 40 and stats_err <= STEP_LOSS_TOL,
               f"distributed vs plain step BatchNorm statistics differ by "
               f"{stats_err} > {STEP_LOSS_TOL}")

@@ -129,28 +129,41 @@ def measure_scaling(world_sizes: Optional[Sequence[int]] = None,
         if missing:
             raise ValueError(f"world sizes {missing} need more than the "
                              f"{n_avail} cards present")
+    parts: Dict[int, List[Dict]] = {}
+    for n in world_sizes:
+        parts[n] = launch(step_seconds, n, (batch_per_device,
+                                            tuple(image_hw), iterations,
+                                            timed_steps, sources, device),
+                          device=device)
+        if verbose:
+            r = scaling_rows(parts, batch_per_device)[-1]
+            print(f"n={n:3d}  batch={r['global_batch']:3d}  "
+                  f"{r['step_ms']:9.3f} ms/step  {r['frames_per_s']:9.3f} "
+                  f"f/s  eff={r['efficiency']:.3f}  alone: gradients' "
+                  f"all-reduce {max(p['grads_ms'] for p in parts[n]):.3f} "
+                  f"ms, one small all-reduce "
+                  f"{max(p['small_ms'] for p in parts[n]):.3f} ms",
+                  flush=True)
+    return scaling_rows(parts, batch_per_device)
+
+
+def scaling_rows(parts: Dict[int, List[Dict]],
+                 batch_per_device: int) -> List[Dict]:
+    """The curve's rows from each world size's ranks' ``step_seconds``
+    results (``{n: [rank 0's, ..., rank n-1's]}``, in the curve's order):
+    the step ends on its last rank, and efficiency is against the first
+    size's frames/s a rank."""
     rows: List[Dict] = []
     base = None
-    for n in world_sizes:
-        parts = launch(step_seconds, n, (batch_per_device, tuple(image_hw),
-                                         iterations, timed_steps, sources,
-                                         device), device=device)
-        # the step ends on its last rank
-        dt = max(p["step_s"] for p in parts)
+    for n, ranks in parts.items():
+        dt = max(p["step_s"] for p in ranks)
         b_global = batch_per_device * n
         fps = b_global / dt
         if base is None:
             base = fps / n
-        eff = fps / (n * base)
         rows.append({"n_devices": n, "global_batch": b_global,
                      "step_ms": dt * 1e3, "frames_per_s": fps,
-                     "efficiency": eff})
-        if verbose:
-            print(f"n={n:3d}  batch={b_global:3d}  {dt * 1e3:9.3f} ms/step  "
-                  f"{fps:9.3f} f/s  eff={eff:.3f}  alone: gradients' "
-                  f"all-reduce {max(p['grads_ms'] for p in parts):.3f} ms, "
-                  f"one small all-reduce "
-                  f"{max(p['small_ms'] for p in parts):.3f} ms", flush=True)
+                     "efficiency": fps / (n * base)})
     return rows
 
 

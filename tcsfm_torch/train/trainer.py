@@ -41,8 +41,7 @@ import torch
 import torch.distributed as dist
 
 from tcsfm_torch.config import Config
-from tcsfm_torch.dist.mesh import (Mesh, shard_batch,
-                                   shard_process_local_batch)
+from tcsfm_torch.dist.mesh import Mesh, shard_process_local_batch
 from tcsfm_torch.geom.warp import Sampler
 from tcsfm_torch.infer import build_models
 from tcsfm_torch.losses.photometric import (compute_losses,
@@ -255,16 +254,12 @@ def eval_step(state: TrainState, batch, sampler: Sampler = grid_sample,
 
 class Trainer:
     """Runs epochs of train or eval steps (trainer.py:193-242). With a
-    mesh of several ranks each loader batch is this rank's rows (a
-    process-sliced ``BatchLoader``); with one, the whole batch."""
+    mesh each loader batch is this rank's rows (a process-sliced
+    ``BatchLoader``; with one rank, the whole batch)."""
 
     def __init__(self, state: TrainState, mesh: Optional[Mesh] = None):
         self.state = state
         self.mesh = mesh
-        # multi-rank launches feed process-local loader rows (JAX's rule)
-        self._shard = (shard_process_local_batch
-                       if mesh is not None and mesh.world_size > 1
-                       else shard_batch)
 
     def run_epoch(self, loader: Iterable[dict], epoch: int,
                   phase: str = "train") -> Dict[str, float]:
@@ -274,7 +269,7 @@ class Trainer:
         for batch in loader:
             if self.mesh is not None:
                 batch.pop("_valid", None)
-                batch = self._shard(self.mesh, batch)
+                batch = shard_process_local_batch(self.mesh, batch)
             if phase == "train":
                 losses = train_step(self.state, batch, mesh=self.mesh)
             else:

@@ -26,8 +26,11 @@ image, 15,360 pixels at most, about 6,500.
   float64 gradient on the global batch.
 * The weights after Adam bit-equal on the two ranks.
 * ``dryrun_multichip(2)`` in the same launch: the window-sharded
-  ``sequence_ba`` within 1e-6 of the unsharded call. ``measure_scaling([1,
-  2])`` (run beside it): finite rows, efficiency 1 at the first.
+  ``sequence_ba`` within 1e-6 of the unsharded call. The scaling curve of
+  ``measure_scaling([1, 2])``, built by its ``scaling_rows`` from
+  ``step_seconds`` on the same two ranks and in a one-rank gloo group of
+  this process (no launch of its own): finite rows, efficiency 1 at the
+  first.
 
 JAX's step runs in this process while the ranks run, so the module pays
 for the slower of the two.
@@ -39,13 +42,14 @@ import jax
 import numpy as np
 import pytest
 import torch
+import torch.distributed as dist
 
 import torch_dist_ranks
 from tcsfm.train.trainer import create_train_state as jax_create_train_state
 from tcsfm.config import Config as JaxConfig
 from tcsfm_torch.config import Config
-from tcsfm_torch.dist.mesh import launch
-from tcsfm_torch.dist.scaling import measure_scaling
+from tcsfm_torch.dist.mesh import free_port, init_group, launch
+from tcsfm_torch.dist.scaling import scaling_rows, step_seconds
 from tcsfm_torch.models.convert import (depth_state_dict, from_flax,
                                         grads_from_flax)
 from tcsfm_torch.ops import grid_sample as gs
@@ -94,10 +98,21 @@ def _one_image_losses(depth_sd, pose_sd, batch):
     return {k: v.item() for k, v in losses.items()}
 
 
+def _one_rank_scaling_part():
+    """``step_seconds`` in a one-rank gloo group of this process: the
+    scaling curve's first row, as ``measure_scaling``'s one-rank launch
+    gives it."""
+    init_group(0, 1, f"127.0.0.1:{free_port()}", "cpu")
+    try:
+        return step_seconds(*torch_dist_ranks.SCALING_ARGS)
+    finally:
+        dist.destroy_process_group()
+
+
 @pytest.fixture(scope="module")
 def run():
-    """JAX's step on the global batch in this process while the two ranks
-    (and the scaling curve's groups) run beside it: every result the
+    """JAX's step on the global batch and the scaling curve's one-rank part
+    in this process while the two ranks run beside it: every result the
     module's tests read."""
     jcfg = JaxConfig(compute_dtype="float32", img_resolution="low",
                      use_mxu_warp=False)
@@ -108,12 +123,9 @@ def run():
     batch = _batch(0, H, W)
     depth_sd, pose_sd = ({k: v.numpy() for k, v in sd.items()}
                          for sd in from_flax(params, stats))
-    with ThreadPoolExecutor(2) as pool:
+    with ThreadPoolExecutor(1) as pool:
         ranks = pool.submit(launch, torch_dist_ranks.step_rank, 2,
                             (depth_sd, pose_sd, batch), device="cpu")
-        scaling = pool.submit(measure_scaling, [1, 2], batch_per_device=1,
-                              image_hw=(32, 64), iterations=1,
-                              timed_steps=1, device="cpu", verbose=False)
         grads, (losses, new_stats) = _jax_step(jcfg, depth_model,
                                                pose_model)(
             params, stats, jax.tree_util.tree_map(jax.numpy.asarray, batch))
@@ -125,7 +137,11 @@ def run():
             losses={k: float(v) for k, v in losses.items()},
             one_rank_f64=_one_rank_f64(depth_sd, pose_sd, batch),
             one_image=_one_image_losses(depth_sd, pose_sd, batch))
-        out.update(ranks=ranks.result(), scaling=scaling.result())
+        one = [_one_rank_scaling_part()]
+        out["ranks"] = ranks.result()
+        out["scaling"] = scaling_rows(
+            {1: one, 2: [r["scaling"] for r in out["ranks"]]},
+            torch_dist_ranks.SCALING_ARGS[0])
     return out
 
 

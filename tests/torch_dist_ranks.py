@@ -15,8 +15,13 @@ from tcsfm_torch.cli import train as cli
 from tcsfm_torch.config import Config
 from tcsfm_torch.dist.dryrun import dryrun_multichip
 from tcsfm_torch.dist.mesh import make_mesh, shard_batch
+from tcsfm_torch.dist.scaling import step_seconds
 from tcsfm_torch.ops import grid_sample as gs
 from tcsfm_torch.train import trainer
+
+# step_seconds' arguments for the scaling rows: one image a rank at 32x64,
+# one iteration, one timed step, two sources, gloo
+SCALING_ARGS = (1, (32, 64), 1, 1, 2, "cpu")
 
 
 def _load(net, state_dict):
@@ -44,7 +49,8 @@ def step_rank(depth_sd, pose_sd, batch):
     """One rank of the 2-rank step: the f32 distributed training step from
     the given weights on this rank's rows of ``batch`` (the global one),
     then the float64 distributed gradient of ``forward_loss`` from the
-    same weights (plain sampler), then ``dryrun_multichip(2)``. Rank 0
+    same weights (plain sampler), then ``dryrun_multichip(2)``, then this
+    rank's part of the scaling curve's two-rank row. Rank 0
     returns the gradients and statistics; every rank its losses and a
     digest of its weights after Adam."""
     mesh = make_mesh(2, device="cpu")
@@ -75,6 +81,7 @@ def step_rank(depth_sd, pose_sd, batch):
     if mesh.rank == 0:
         out["grads64"] = named_grads(depth64, pose64)
     out["dryrun"] = dryrun_multichip(2, device="cpu")
+    out["scaling"] = step_seconds(*SCALING_ARGS)
     return out
 
 
