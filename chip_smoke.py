@@ -68,6 +68,19 @@ Phases, each printing its elapsed seconds:
      (and both routes against a float64 tail), the pose chain against the
      default route under trained-like conditioning, frames/s of both
      routes in turns, and peak memory;
+ 9a. phase "bf16", the JAX package's default precision
+     (``compute_dtype="bfloat16"``: both networks in bfloat16 on float32
+     parameters, geometry and sampler in float32), at phase 3's setting
+     with trained-like weights: the coupled forward through both routes
+     (cuDNN bf16 layers; ``make_tail_apply`` with the bf16 tail kernel)
+     and a training step (``remat_coupled`` on), their launches counted,
+     each held against the same bf16 run with the plain sampler (and the
+     plain bf16 tail) within 2x the gap to the f32 run of the same
+     weights, and timed in turns with that f32 run (frames/s, step ms,
+     peak memory); the 64x96 forward card vs CPU in bf16 at the same rule;
+     ``cli.train`` with its default ``--compute_dtype`` for two epochs
+     (its ``config.json`` says bfloat16; in ``build/bf16_cli/``). Every
+     other phase runs in float32 (``compute_dtype="float32"`` pinned);
  10. the fifth main path: PFT (``solver.pft.PFTOptimizer.optimize_window``)
      at bench.py's setting: encoder mode, 20 epochs, window batch 4, S=2,
      4 iterations, 192x640, f32 with TF32 off, trained-like weights,
@@ -121,14 +134,15 @@ Phases, each printing its elapsed seconds:
 
 Phase 2 also holds the sampler's two backward kernels (d_coords only,
 and d_coords + d_img; d_coords bit for bit), its value+Jacobian kernel and
-the decoder tail kernel against their plain versions.
+the decoder tail kernels (f32 and bf16) against their plain versions.
 Prints the kernels' JSON line, then, as the last line,
 ``{"ok": true, "device": {...}}``. Any failed check raises and exits
 non-zero; a hang past the watchdog dumps a traceback and exits non-zero.
 Inputs and weights come from seeds, apart from the drive, the
 repository's ``.flagship_data/drive1504_192x640/synthetic/
 sequence_data.npz`` (phases 11-13). Writes under ``build/sequence/``,
-``build/train_cli/``, ``build/eval/`` and ``build/flow/``.
+``build/train_cli/``, ``build/bf16_cli/``, ``build/eval/`` and
+``build/flow/``.
 """
 
 from __future__ import annotations
@@ -217,7 +231,7 @@ BN_GLOBAL_TOL = {"float64": 1e-10, "float32": 1e-4}
 # of B an epoch; 12 val windows, 2 batches; 12 test windows)
 TRAIN_CLI_ARGS = ["--synthetic", "--img_resolution", "med", "--minibatch",
                   str(B), "--iterations", str(ITERS), "--synthetic_frames",
-                  "14"]
+                  "14", "--compute_dtype", "float32"]
 # the refiners: scripts/bench_refiners.py's shapes, window batch 4
 RB, RITERS, BLOCK, REFINE_TIMED = 4, 2, 12, 3
 GRADS_TOL = 1e-5              # gx, gy: of their largest magnitude
@@ -265,6 +279,33 @@ TAIL_TILE_MACS = 16 * 36 * 9 * 32 * 32 + 512 * 9 * 32 * 8 + 12 * 32 * 72
 # products for each f32 one (3xTF32)
 TF32_FLOPS_PER_S = 495e12     # H100 SXM dense TF32 tensor cores
 TAIL_TC_MACS = 9 * 32 * 32 + 9 * 32 * 8
+# the bf16 tail kernel (decoder_tail_bf16): the same 51.3 GFLOP at
+# [18, 32, 192, 640], all of it bf16 products (conv3's too), so its least
+# time is the dense bf16 rate's; its bytes are x in bf16 and out in f32.
+# Kernel vs decoder_tail_plain_bf16 on the f32 disparity (before the
+# cast): both round elu(x), f1 and f2 to bf16 at the same points, but sum
+# in another f32 order (the tensor cores' against cuDNN's f32 convs) and
+# the kernel's ELU is a polynomial and a fast exponential; a value that
+# lands on the other side of a bf16 rounding boundary moves by one bf16
+# ulp (2^-8 relative) and carries that, through w2 and w3 and the
+# sigmoid's slope (at most 1/4), to the disparity: a few flips near one
+# pixel move it by ~1e-3 (measured on an H100, PR 17: 1.1e-3-1.8e-3 at the
+# main shape, 8.2e-4-8.8e-4 at the border shape, 2-3.5% of the pixels
+# moved by more than 1e-6)
+BF16_FLOPS_PER_S = 989e12     # H100 SXM dense bf16 tensor cores
+TAIL_BF16_TOL = 4e-3
+# phase "bf16": a bf16 run held against the same bf16 run with the plain
+# sampler (and the plain bf16 tail), and the card's bf16 run against the
+# CPU's, as the CPU tests hold the port's bf16 run against JAX's
+# (tests/test_torch_bf16*.py): relative L2 within BF16_FRACTION x the gap
+# between the bf16 run and the f32 run of the same weights on the same
+# inputs (two bf16 runs that round in different places differ by about
+# sqrt(2) x that gap); BF16_TIMED runs of each dtype in turns
+BF16_FRACTION = 2.0
+BF16_TIMED = 6
+KERNEL_NAMES = ("grid_sample_fwd", "grid_sample_bwd_coords",
+                "grid_sample_bwd_img", "grid_sample_with_grads",
+                "decoder_tail", "decoder_tail_bf16")
 # phase "pft": bench.py's PFT setting (encoder mode, PFTOptions(epochs=20,
 # num_source_imgs=2), window batch 4, ITERS iterations at H x W)
 PFT_B, PFT_EPOCHS, PFT_TIMED = 4, 20, 3
@@ -707,7 +748,7 @@ def refiner_jvp_samples(torch, gs, build_models):
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     cfg = Config(iterations=RITERS, num_scales=1, minibatch=RB,
-                 img_resolution="med")
+                 img_resolution="med", compute_dtype="float32")
     depth_net, pose_net, (tgt, src, K), block = refiner_inputs(
         torch, cfg, build_models, seed=7)
     depths, poses = forward_depths(torch, cfg, depth_net, pose_net, tgt, src,
@@ -1236,6 +1277,89 @@ def phase_tail_kernel(torch, dt, flush):
     return row
 
 
+def phase_tail_bf16_kernel(torch, dt, flush):
+    """The bf16 tail kernel vs decoder_tail_plain_bf16 at the coupled
+    forward's shape [18,32,192,640] and at [2,32,190,638] (tiles cut short
+    on both borders), on the f32 disparity before the cast; at the main
+    shape its device time in turns with the default bf16 route's cuDNN
+    layer sequence (its library call) and in turns with the f32 tail
+    kernel on the same input in f32, the plain version's time, and the
+    bound."""
+    import math
+
+    from tcsfm_torch.models.layers import ReflConv
+
+    bf16 = torch.bfloat16
+    torch.backends.cudnn.allow_tf32 = False    # the plain version's f32 convs
+    for shape in TAIL_SHAPES[::-1]:
+        x, ws = tail_inputs(torch, shape, sum(shape) + 1)
+        x = x.to(bf16)
+        out = dt.decoder_tail(x, *ws)
+        ref = dt.decoder_tail_plain_bf16(x, *ws)
+        torch.cuda.synchronize()
+        check(out.dtype == torch.float32, f"bf16 tail returned {out.dtype}")
+        diff = (out - ref).abs()
+        err = diff.max().item()
+        flipped = (diff > 1e-6).float().mean().item()
+        check(err <= TAIL_BF16_TOL, f"decoder_tail_bf16 {list(shape)}: "
+              f"kernel vs plain max abs err {err} > {TAIL_BF16_TOL}")
+        say("kernels", f"decoder_tail_bf16 {list(shape)}: max|kernel-plain| "
+            f"{err:.3e} (limit {TAIL_BF16_TOL}), {flipped:.3%} of the pixels "
+            f"differ by more than 1e-6 (bf16 rounding flips of elu(x), f1, "
+            f"f2)")
+    # x, ws and out are the main shape's: the default bf16 route's layers
+    seq = torch.nn.Sequential(
+        torch.nn.ELU(), ReflConv(32, 32, dtype=bf16), torch.nn.ELU(),
+        ReflConv(32, 8, dtype=bf16), torch.nn.ELU(),
+        ReflConv(8, 1, dtype=bf16), torch.nn.Sigmoid()).cuda()
+    for conv, wt, bias in zip(seq[1::2], ws[0::2], ws[1::2]):
+        conv.conv.weight.data.copy_(wt)
+        conv.conv.bias.data.copy_(bias)
+    x32 = x.float()
+
+    def sequence():
+        with torch.no_grad():
+            return seq(x).permute(0, 2, 3, 1)
+
+    def kernel():
+        return dt.decoder_tail(x, *ws)
+
+    def f32_kernel():
+        return dt.decoder_tail(x32, *ws)
+
+    seq_err = (sequence().float() - out).abs().max().item()
+    warm_up(torch, kernel, sequence, f32_kernel)
+    row = timed(torch, kernel, sequence, flush, iters=TAIL_TIMED_LAUNCHES)
+    k32, _ = in_turns(torch, f32_kernel, iters=TAIL_TIMED_LAUNCHES)
+    k16, _ = in_turns(torch, kernel, iters=TAIL_TIMED_LAUNCHES)
+    plain_ms = time_ms(lambda: dt.decoder_tail_plain_bf16(x, *ws), iters=20)
+    n, _, h, w = x.shape
+    nbytes = (x.numel() * 2 + out.numel() * 4
+              + sum(t.numel() for t in ws) * 4)
+    flops = 2 * TAIL_MACS * n * h * w
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = flops / BF16_FLOPS_PER_S * 1e3
+    bound_ms = max(bytes_ms, ops_ms)
+    ms = row["ms"]
+    row.update(max_abs_err=err, plain_ms=plain_ms, bound_ms=bound_ms,
+               bound_by="bytes" if bytes_ms >= ops_ms else "operations",
+               bytes_bound_ms=bytes_ms, operations_bound_ms=ops_ms,
+               f32_kernel_ms=statistics.median(k32), f32_kernel_turns=k32,
+               bf16_kernel_turns_beside_f32=k16)
+    say("kernels", f"decoder_tail_bf16 {list(x.shape)}: max|kernel-cuDNN "
+        f"bf16 layers| {seq_err:.3e}; " + times_text(
+            row, "library_ms", "the default bf16 route's cuDNN layer "
+            "sequence (3 F.pad + F.conv2d in bf16, ELU, sigmoid)")
+        + f"; in turns with the f32 kernel on the same input: f32 "
+        f"{us(row['f32_kernel_ms'])} us, bf16 {us(statistics.median(k16))} "
+        f"us; plain {us(plain_ms)} us; bound {us(bound_ms)} us "
+        f"({row['bound_by']}: {flops / 1e9:.2f} GFLOP at "
+        f"{BF16_FLOPS_PER_S / 1e12:.0f} TFLOP/s = {us(ops_ms)} us, "
+        f"{nbytes / 1e6:.2f} MB at {HBM_BYTES_PER_S / 1e12:.2f} TB/s = "
+        f"{us(bytes_ms)} us), kernel at {bound_ms / ms:.1%} of it")
+    return row
+
+
 def smoke_inputs(b, s, h, w, seed):
     import numpy as np
 
@@ -1543,8 +1667,8 @@ def card_test_setting(torch, create_train_state):
     checks: 96x160, B=2, S=2, the loss's depth terms on."""
     from tcsfm_torch.config import Config
 
-    cfg = Config(iterations=ITERS, **dict(STEP_GRAD_VARIANTS)[
-        "depth terms on"])
+    cfg = Config(iterations=ITERS, compute_dtype="float32",
+                 **dict(STEP_GRAD_VARIANTS)["depth terms on"])
     state = create_train_state(cfg, device="cuda",
                                generator=torch.Generator().manual_seed(0))
     condition_like_trained(state.depth_net, torch)
@@ -2130,7 +2254,7 @@ def phase_refiners(torch, gs, build_models):
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     cfg = Config(iterations=RITERS, num_scales=1, minibatch=RB,
-                 img_resolution="med")
+                 img_resolution="med", compute_dtype="float32")
     depth_net, pose_net, (tgt, src, K), block = refiner_inputs(
         torch, cfg, build_models, seed=7)
 
@@ -2412,6 +2536,302 @@ def phase_tail(torch, gs, dt, cfg, build_models, coupled_forward):
     return counts[:2]
 
 
+def within_gap(err, gap, what):
+    check(err <= BF16_FRACTION * gap, f"{what}: {err:.3e} > {BF16_FRACTION} "
+          f"x the bf16-vs-f32 gap {gap:.3e}")
+    return f"{err:.2e} ({err / gap:.2f} x gap {gap:.2e})" if gap else \
+        f"{err:.2e}"
+
+
+def one_minus_cos(a, b) -> float:
+    return 1.0 - (a @ b / (a.norm() * b.norm())).item()
+
+
+def phase_bf16(torch, gs, dt, cfg, build_models, coupled_forward,
+               create_train_state, train_step):
+    """The JAX package's default precision on the card: both networks in
+    bfloat16 on float32 parameters (``compute_dtype="bfloat16"``), the
+    geometry and the sampler in float32. At phase "slice"'s setting
+    (192x640, B=6, S=2, 4 iterations), seeded weights with trained-like
+    conditioning: the coupled forward through both routes (cuDNN layers,
+    and ``make_tail_apply`` with the bf16 tail kernel) and a training step
+    (``remat_coupled`` on), each with its launches counted, held against
+    the same bf16 run with the plain sampler (and the plain bf16 tail) at
+    BF16_FRACTION x its gap to the f32 run of the same weights (the CPU
+    tests' rule: tests/test_torch_bf16*.py), and timed in turns with that
+    f32 run (frames/s or step ms, peak memory); the 64x96 forward card vs
+    CPU in bf16 at the same rule; then ``cli.train`` with its default
+    ``--compute_dtype`` for two epochs. Returns the launches by kernel
+    name."""
+    import copy
+    import json
+    import os
+    import shutil
+    from pathlib import Path
+
+    from tcsfm_torch.cli import train as cli
+    from tcsfm_torch.models.depth import make_tail_apply, tail_weights
+    from tcsfm_torch.train import trainer as tr
+
+    bf16 = torch.bfloat16
+    cfg16 = cfg.replace(compute_dtype="bfloat16")
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    nets = {}
+    for c in (cfg16, cfg):
+        nets[c.compute_dtype] = build_models(
+            c, device="cuda", generator=torch.Generator().manual_seed(3))
+        condition_like_trained(nets[c.compute_dtype][0], torch)
+    cfgs = {"bfloat16": cfg16, "float32": cfg}
+    tgt, src, K = (torch.from_numpy(a).cuda()
+                   for a in smooth_inputs(torch, B, S, H, W, seed=8))
+    launches = dict.fromkeys(KERNEL_NAMES, 0)
+
+    def plain_tail(net):
+        def apply(imgs):
+            z = net.decode_tail_input(net.encode(imgs))
+            fn = (dt.decoder_tail_plain_bf16 if z.dtype == bf16
+                  else dt.decoder_tail_plain)
+            return [fn(z, *tail_weights(net)).to(z.dtype)]
+        return apply
+
+    def forward(dtype, tail, plain=False):
+        depth_net, pose_net = nets[dtype]
+        apply = None
+        if tail:
+            apply = plain_tail(depth_net) if plain else make_tail_apply(
+                depth_net)
+        return coupled_forward(
+            depth_net, pose_net, tgt, src, K, cfgs[dtype], depth_apply=apply,
+            sampler=gs.grid_sample_plain if plain else gs.grid_sample)
+
+    def counts():
+        return read_counts(gs) + (gs.LAUNCHES_FWD_GRADS, dt.LAUNCHES,
+                                  dt.LAUNCHES_BF16)
+
+    def zero_all():
+        zero_counts(gs)
+        dt.LAUNCHES = dt.LAUNCHES_BF16 = 0
+
+    def add(got):
+        for name, n in zip(KERNEL_NAMES, got):
+            launches[name] += n
+
+    # 1. the forward through both routes, the main path's launches, held
+    # against the plain sampler (and tail) at the gap to f32
+    for tail in (False, True):
+        route = "tail" if tail else "layers"
+        zero_all()
+        _, _, disp, chain = forward("bfloat16", tail)
+        torch.cuda.synchronize()
+        got = counts()
+        add(got)
+        want = (ITERS - 1, 0, 0, 0, 0, int(tail))
+        check(got == want, f"bf16 forward ({route}): launches (fwd, "
+              f"bwd_coords, bwd_img, fwd_grads, tail, tail_bf16) {got}, "
+              f"expected {want}")
+        check(disp.dtype == bf16 and chain.dtype == torch.float32,
+              f"bf16 forward ({route}): disparity {disp.dtype}, chain "
+              f"{chain.dtype}")
+        check(tuple(disp.shape) == (B, H, W, 1) and bool(
+            torch.isfinite(disp).all() and torch.isfinite(chain).all()),
+            f"bf16 forward ({route}): shape {tuple(disp.shape)} or "
+            f"non-finite values")
+        _, _, disp_p, chain_p = forward("bfloat16", tail, plain=True)
+        _, _, disp_32, chain_32 = forward("float32", tail)
+        texts = [within_gap(rel_l2_of(disp, disp_p),
+                            rel_l2_of(disp, disp_32),
+                            f"bf16 forward ({route}): disparity vs plain")]
+        for it in range(ITERS):
+            texts.append(within_gap(
+                rel_l2_of(chain[:, it], chain_p[:, it]),
+                rel_l2_of(chain[:, it], chain_32[:, it]),
+                f"bf16 forward ({route}): chain iteration {it} vs plain"))
+        say("bf16", f"forward {H}x{W} B={B} S={S} iters={ITERS}, {route} "
+            f"route: launches (fwd, bwd_coords, bwd_img, fwd_grads, tail, "
+            f"tail_bf16) {got}; disparity bf16, chain f32, finite; vs the "
+            f"same run with the plain sampler" + (" and the plain bf16 tail"
+                                                  if tail else "")
+            + f", relative L2 (limit {BF16_FRACTION} x the gap to the f32 "
+            f"run of the same weights): disparity {texts[0]}; chain by "
+            f"iteration " + "; ".join(texts[1:]))
+
+    # 2. frames/s and peak memory, bf16 and f32 in turns, both routes
+    for tail in (False, True):
+        route = "tail" if tail else "layers"
+        times = {"bfloat16": [], "float32": []}
+        peak = {}
+        for dtype in times:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            forward(dtype, tail)
+            torch.cuda.synchronize()
+            peak[dtype] = torch.cuda.max_memory_allocated()
+        for i in range(2 + BF16_TIMED):
+            for dtype in (("float32", "bfloat16") if i % 2 == 0
+                          else ("bfloat16", "float32")):
+                t = time.perf_counter()
+                forward(dtype, tail)
+                torch.cuda.synchronize()
+                if i >= 2:
+                    times[dtype].append(time.perf_counter() - t)
+        med = {d: statistics.median(v) for d, v in times.items()}
+        say("bf16", f"forward, {route} route, bf16 vs f32 in turns ("
+            f"{len(times['bfloat16'])} each, wall, synchronized): " + "; ".join(
+                f"{d} median {med[d] * 1e3:.3f} ms (min "
+                f"{min(times[d]) * 1e3:.3f}, max {max(times[d]) * 1e3:.3f}) "
+                f"-> {B / med[d]:.2f} frames/s, peak memory "
+                f"{peak[d] / 2**20:.1f} MiB" for d in med))
+
+    # 3. the 64x96 forward on the card and on the CPU, in bf16
+    b, s, h, w = 2, 2, 64, 96
+    inputs = smooth_inputs(torch, b, s, h, w, seed=2)
+    small = {}
+    for dtype, c in cfgs.items():
+        cpu_nets = [copy.deepcopy(n).cpu() for n in nets[dtype]]
+        small[dtype] = coupled_forward(*cpu_nets, *inputs, c, device="cpu")
+    card = coupled_forward(*nets["bfloat16"], *inputs, cfg16)
+    cpu16, cpu32 = small["bfloat16"], small["float32"]
+    texts = [within_gap(rel_l2_of(card[2], cpu16[2]),
+                        rel_l2_of(cpu16[2], cpu32[2]),
+                        "bf16 64x96 card vs CPU: disparity")]
+    for it in range(ITERS):
+        texts.append(within_gap(
+            rel_l2_of(card[3][:, it], cpu16[3][:, it]),
+            rel_l2_of(cpu16[3][:, it], cpu32[3][:, it]),
+            f"bf16 64x96 card vs CPU: chain iteration {it}"))
+    say("bf16", f"{h}x{w} B={b} S={s} forward, bf16 card vs bf16 CPU, "
+        f"relative L2 (limit {BF16_FRACTION} x the CPU's bf16-vs-f32 gap): "
+        f"disparity {texts[0]}; chain by iteration " + "; ".join(texts[1:]))
+
+    # 4. the training step (remat_coupled on), bf16 against the plain
+    # sampler and against f32 from the same weights, then timed in turns
+    states, batch = {}, None
+    for dtype, c in cfgs.items():
+        states[dtype], batch = train_setting(torch, c, create_train_state)
+    want = step_launches(ITERS, cfg.remat_coupled) + (0, 0, 0)
+    with cudnn_deterministic(torch):
+        zero_all()
+        runs = {"kernel": step_grads(torch, train_step, states["bfloat16"],
+                                     batch, gs.grid_sample)}
+        got = counts()
+        add(got)
+        check(got == want, f"bf16 step: launches {got}, expected {want}")
+        runs["plain"] = step_grads(torch, train_step, states["bfloat16"],
+                                   batch, gs.grid_sample_plain)
+        runs["f32"] = step_grads(torch, train_step, states["float32"], batch,
+                                 gs.grid_sample)
+    losses = runs["kernel"][0]
+    for k, v in losses.items():
+        check(bool(torch.isfinite(v)), f"bf16 step: {k} = {v.item()}")
+    check(losses["l_reconstruct_inverse"].item() > 0,
+          "bf16 step: the inverse term is 0")
+    check(losses["mean_disp"].dtype == bf16, "bf16 step: mean_disp is "
+          f"{losses['mean_disp'].dtype}")
+    texts = []
+    for k in sorted(losses):
+        ours, plain, f32 = (runs[r][0][k].double().cpu()
+                            for r in ("kernel", "plain", "f32"))
+        if f32 == 0 and ours == 0:
+            continue
+        texts.append(f"{k} " + within_gap(
+            abs(ours - plain).item() / abs(plain).item(),
+            abs(ours - f32).item() / abs(f32).item(),
+            f"bf16 step: {k} vs plain"))
+    grads = {r: torch.cat([g.reshape(-1).double() for g in v[1].values()
+                           if g is not None]) for r, v in runs.items()}
+    for state in states.values():
+        for p in list(state.depth_net.parameters()) + list(
+                state.pose_net.parameters()):
+            check(p.dtype == torch.float32, "a parameter is not float32")
+    cos_text = within_gap(one_minus_cos(grads["kernel"], grads["plain"]),
+                          one_minus_cos(grads["kernel"], grads["f32"]),
+                          "bf16 step: 1 - cos(gradient) vs plain")
+    say("bf16", f"training step {H}x{W} B={B} S={S} iters={ITERS}, "
+        f"remat_coupled {cfg.remat_coupled}: launches (fwd, bwd_coords, "
+        f"bwd_img, fwd_grads, tail, tail_bf16) {got}; float32 parameters "
+        f"and gradients; vs the same bf16 step with the plain sampler (cuDNN "
+        f"deterministic), limit {BF16_FRACTION} x the gap to the f32 step of "
+        f"the same weights: losses (relative) " + "; ".join(texts)
+        + f"; gradient 1 - cos {cos_text}")
+    times = {"bfloat16": [], "float32": []}
+    peak = dict.fromkeys(times, 0)
+    for i in range(TRAIN_WARMUP + TRAIN_TIMED):
+        for dtype in (("float32", "bfloat16") if i % 2 == 0
+                      else ("bfloat16", "float32")):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t = time.perf_counter()
+            step_losses = train_step(states[dtype], batch)
+            torch.cuda.synchronize()
+            peak[dtype] = max(peak[dtype], torch.cuda.max_memory_allocated())
+            if i >= TRAIN_WARMUP:
+                times[dtype].append(time.perf_counter() - t)
+            check(all(bool(torch.isfinite(v)) for v in step_losses.values()),
+                  f"{dtype} step {i}: non-finite losses")
+    med = {d: statistics.median(v) for d, v in times.items()}
+    say("bf16", f"training step, bf16 vs f32 in turns ({TRAIN_TIMED} each "
+        f"after {TRAIN_WARMUP}, wall, synchronized): " + "; ".join(
+            f"{d} median {med[d] * 1e3:.3f} ms (min {min(times[d]) * 1e3:.3f},"
+            f" max {max(times[d]) * 1e3:.3f}) -> {B / med[d]:.2f} frames/s, "
+            f"peak memory {peak[d] / 2**20:.1f} MiB" for d in med))
+
+    # 5. the training CLI at its default --compute_dtype (bfloat16)
+    work = Path(__file__).resolve().parent / "build" / "bf16_cli"
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    args = [a for a in TRAIN_CLI_ARGS if a not in ("--compute_dtype",
+                                                   "float32")]
+    per_step, real_step = [], tr.train_step
+
+    def counted_step(state, batch, **kw):
+        before = read_counts(gs)
+        out = real_step(state, batch, **kw)
+        per_step.append(tuple(a - b for a, b in zip(read_counts(gs),
+                                                    before)))
+        return out
+
+    zero_all()
+    tr.train_step = counted_step
+    try:
+        loop = quiet(lambda: cli.main(args + [
+            "--results_dir", str(work), "--date", "run", "--num_epochs",
+            "2"]), work / "cli.log")
+    finally:
+        tr.train_step = real_step
+    torch.cuda.synchronize()
+    got = counts()
+    add(got)
+    with open(work / "run" / "config.json") as f:
+        written = json.load(f)["compute_dtype"]
+    check(written == "bfloat16", f"bf16 cli: config.json says {written}")
+    check(loop.state.depth_net.compute_dtype == bf16, "bf16 cli: the depth "
+          "net computes in " + str(loop.state.depth_net.compute_dtype))
+    with open(work / "cli.log") as f:
+        printed = [line for line in f if line.startswith("compute dtype")]
+    check(printed and "bfloat16" in printed[0], f"bf16 cli printed {printed}")
+    with open(work / "run" / "logs" / "scalars.jsonl") as f:
+        values = {(r["tag"], r["step"]): r["value"]
+                  for r in map(json.loads, f)}
+    for epoch in (1, 2):
+        for tag in ("train/total", "val/total"):
+            v = values.get((tag, epoch))
+            check(v is not None and math.isfinite(v),
+                  f"bf16 cli: {tag} at epoch {epoch}: {v}")
+    check(set(per_step) == {want[:3]}, f"bf16 cli: launches a step "
+          f"{sorted(set(per_step))}, expected {want[:3]}")
+    say("bf16", f"cli.train {' '.join(args)} --num_epochs 2 (default "
+        f"--compute_dtype): config.json compute_dtype {written}, printed "
+        f"{printed[0].strip()!r}; {len(per_step)} steps, each launching "
+        f"{want[:3]}; train/total " + ", ".join(
+            f"{values[('train/total', e)]:.6f}" for e in (1, 2))
+        + f", val/total " + ", ".join(
+            f"{values[('val/total', e)]:.6f}" for e in (1, 2))
+        + f"; launches of the call (fwd, bwd_coords, bwd_img, fwd_grads, "
+        f"tail, tail_bf16) {got}")
+    return launches
+
+
 def pft_expected_launches(epochs: int, iters: int):
     """(value, d_coords only, d_coords + d_img) launches of one
     ``optimize_window`` call in a mode that trains depth: every forward
@@ -2437,7 +2857,9 @@ def pft_results(res):
 
 
 def rel_l2_of(ours, ref) -> float:
-    """||ours - ref|| / ||ref|| over all entries."""
+    """||ours - ref|| / ||ref|| over all entries, in float64 on ``ref``'s
+    device."""
+    ours, ref = ours.to(ref.device).double(), ref.double()
     return ((ours - ref).norm() / ref.norm().clamp_min(1e-30)).item()
 
 
@@ -3231,9 +3653,12 @@ def phase_eval(torch, gs, cfg, build_models):
     condition_like_trained(nets[0], torch)
     pt = work / "best_model.pt"
     save_reference_checkpoint(torch, *nets, pt)
+    # the float32 main-path config carried over (the CLI's own default,
+    # as JAX's, is bfloat16)
+    cfg.save(str(work / "config_in.json"))
     out = quiet(lambda: import_checkpoint.main(
-        ["--torch_ckpt", str(pt), "--out_dir", model_dir, "--iterations",
-         str(ITERS)]), work / "import.log")
+        ["--torch_ckpt", str(pt), "--out_dir", model_dir, "--config",
+         str(work / "config_in.json")]), work / "import.log")
     check(out["epoch"] == 7 and out["best_val_loss"] == 0.25,
           f"import_checkpoint printed {out}")
     depth_net, pose_net = load_nets(model_dir, "cuda")
@@ -3495,7 +3920,8 @@ def phase_flow(torch, gs, build_models):
         return read_counts(gs) + (gs.LAUNCHES_FWD_GRADS,)
 
     # 1. a classical config with seeded 8-channel nets through a checkpoint
-    cfg = Config(iterations=1, flow_type="classical", img_resolution="med")
+    cfg = Config(iterations=1, flow_type="classical", img_resolution="med",
+                 compute_dtype="float32")
     nets = build_models(cfg, device="cuda",
                         generator=torch.Generator().manual_seed(0))
     condition_like_trained(nets[0], torch)
@@ -3708,7 +4134,7 @@ def med_config():
     from tcsfm_torch.config import Config
 
     cfg = Config(iterations=ITERS, num_scales=1, minibatch=B,
-                 img_resolution="med")
+                 img_resolution="med", compute_dtype="float32")
     check(cfg.image_size == (H, W), f"med res is {cfg.image_size}")
     return cfg
 
@@ -3719,7 +4145,7 @@ def phase_all_kernels(torch, cfg):
     coupled forward's re-warps, the refiners' jvps, the training step's
     backward launches) and at ``smoke_coords``. Returns the forward rows by
     C (and the backward rows by name), the value+Jacobian rows by batch,
-    and the tail's row. Runs on whatever ``tcsfm_torch`` is imported, so a
+    and the f32 and bf16 tails' rows. Runs on whatever ``tcsfm_torch`` is imported, so a
     parent tree's kernels are timed the same way from its own checkout
     (README):
     ``python3 -c "import torch, chip_smoke as c;
@@ -3737,7 +4163,10 @@ def phase_all_kernels(torch, cfg):
         torch, gs, cfg, create_train_state, train_step), flush))
     grads_rows = phase_grads_kernel(torch, gs, jvp_samples, flush)
     tail_row = phase_tail_kernel(torch, dt, flush)
-    return rows, grads_rows, tail_row
+    # a parent tree's checkout may have no bf16 tail
+    tail_bf16_row = (phase_tail_bf16_kernel(torch, dt, flush)
+                     if hasattr(dt, "decoder_tail_plain_bf16") else None)
+    return rows, grads_rows, tail_row, tail_bf16_row
 
 
 def main() -> int:
@@ -3800,9 +4229,12 @@ def main() -> int:
 
     cfg = med_config()
     t = time.monotonic()
-    rows, grads_rows, tail_row = phase_all_kernels(torch, cfg)
+    rows, grads_rows, tail_row, tail_bf16_row = phase_all_kernels(torch, cfg)
     tail_row["ptxas"] = ptxas.get("decoder_tail_kernel")
+    tail_bf16_row["ptxas"] = ptxas.get("decoder_tail_bf16_kernel")
     say("kernels", f"decoder_tail_kernel, -Xptxas -v: {tail_row['ptxas']}")
+    say("kernels", f"decoder_tail_bf16_kernel, -Xptxas -v: "
+        f"{tail_bf16_row['ptxas']}")
     say("kernels", f"phase took {time.monotonic() - t:.2f} s")
     t = time.monotonic()
     launches = phase_slice(torch, gs, cfg, build_models, coupled_forward)
@@ -3815,8 +4247,9 @@ def main() -> int:
                                  train_step, forward_loss)
     say("train", f"phase took {time.monotonic() - t:.2f} s")
     t = time.monotonic()
-    phase_train_reference(torch, Config(iterations=ITERS), create_train_state,
-                          train_step, forward_loss, gs)
+    phase_train_reference(torch, Config(iterations=ITERS,
+                                        compute_dtype="float32"),
+                          create_train_state, train_step, forward_loss, gs)
     say("train reference", f"phase took {time.monotonic() - t:.2f} s")
     t = time.monotonic()
     dist_counts = phase_dist(torch, gs, cfg, create_train_state, train_step,
@@ -3835,6 +4268,11 @@ def main() -> int:
     tail_launches, tail_fwd_launches = phase_tail(
         torch, gs, dt, cfg, build_models, coupled_forward)
     say("tail", f"phase took {time.monotonic() - t:.2f} s")
+    t = time.monotonic()
+    bf16_launches = phase_bf16(torch, gs, dt, cfg, build_models,
+                               coupled_forward, create_train_state,
+                               train_step)
+    say("bf16", f"phase took {time.monotonic() - t:.2f} s")
     t = time.monotonic()
     pft_counts = phase_pft(torch, gs, cfg, build_models)
     say("pft", f"phase took {time.monotonic() - t:.2f} s")
@@ -3869,7 +4307,8 @@ def main() -> int:
                                 pft_counts[2]),
         "grid_sample_with_grads": (0, 0, {k: v[1] for k, v in
                                           refine_counts.items()}, 0, 0),
-        "decoder_tail": (0, 0, no_refine, tail_launches, 0)}
+        "decoder_tail": (0, 0, no_refine, tail_launches, 0),
+        "decoder_tail_bf16": (0, 0, no_refine, 0, 0)}
     kernels = []
     for name, source, replaces, row in (
             ("grid_sample_fwd", fwd_src, "tcsfm/ops/warp_mxu.py:470",
@@ -3881,13 +4320,15 @@ def main() -> int:
             ("grid_sample_with_grads", fwd_src, "tcsfm/ops/warp_mxu.py:526",
              dict(grads_rows[RB], chain_windows=grads_rows[BLOCK - 2])),
             ("decoder_tail", "tcsfm_torch/ops/csrc/decoder_tail.cu",
-             "experiments/decoder_tail.py:200", tail_row)):
+             "experiments/decoder_tail.py:200", tail_row),
+            ("decoder_tail_bf16", "tcsfm_torch/ops/csrc/decoder_tail.cu",
+             "experiments/decoder_tail.py:200", tail_bf16_row)):
         fwd, step, refine, tail_fwd, pft_call = per_path[name]
         i = seq_index.get(name)
         vo_pass = 0 if i is None else vo_counts[i]
         seq_calls = {r: 0 if i is None else c[i]
                      for r, c in seq_counts.items()}
-        train_cli = cli_counts[cli_index[name]]
+        train_cli = cli_counts[cli_index[name]] if name in cli_index else 0
         evals = {p: 0 if i is None else c[i] for p, c in eval_counts.items()}
         flows = {p: n if name == "grid_sample_fwd" else 0
                  for p, n in flow_counts.items()}
@@ -3898,7 +4339,7 @@ def main() -> int:
                             + tail_fwd + pft_call + vo_pass
                             + sum(seq_calls.values()) + train_cli
                             + sum(evals.values()) + sum(flows.values())
-                            + dist_step,
+                            + dist_step + bf16_launches[name],
                             launches_per_forward=fwd,
                             launches_per_train_step=step,
                             launches_per_refiner_call=refine,
@@ -3909,7 +4350,9 @@ def main() -> int:
                             launches_per_train_cli=train_cli,
                             launches_per_eval=evals,
                             launches_per_flow=flows,
-                            launches_per_dist_step=dist_step, **row))
+                            launches_per_dist_step=dist_step,
+                            launches_in_bf16_phase=bf16_launches[name],
+                            **row))
     print(json.dumps({"kernels": kernels}), flush=True)
     faulthandler.cancel_dump_traceback_later()
     print(json.dumps({"ok": True, "device": {

@@ -16,8 +16,9 @@ from tcsfm_torch.train.checkpoint import load_checkpoint
 
 
 def load_config(model_dir: str, default: Config) -> Config:
-    """``model_dir``'s ``config.json``, printing what the port does not take
-    from it (``config.json_notes``); ``default`` without a directory."""
+    """``model_dir``'s ``config.json``, printing the keys the port does not
+    read (``config.json_notes``); ``default`` without a directory. The
+    networks compute in its ``compute_dtype`` (``load_nets``)."""
     if not model_dir:
         return default
     with open(os.path.join(model_dir, "config.json")) as f:
@@ -28,12 +29,13 @@ def load_config(model_dir: str, default: Config) -> Config:
 
 
 def load_nets(model_dir: str, device) -> Tuple[DepthNet, PoseNet]:
-    """The networks on ``device`` in eval mode: ``model_dir``'s best model
-    (or its latest checkpoint), or with no directory the seeded init of
-    ``infer.build_models`` (generator seed 0; the JAX CLIs' init draws
-    other numbers)."""
+    """The networks on ``device`` in eval mode, computing in the model's
+    ``compute_dtype``: ``model_dir``'s best model (or its latest
+    checkpoint), or with no directory the seeded init of
+    ``infer.build_models`` in float32, as the JAX CLIs' defaults compute
+    (generator seed 0; the JAX CLIs' init draws other numbers)."""
     cfg = (Config.load(os.path.join(model_dir, "config.json")) if model_dir
-           else Config())
+           else Config(compute_dtype="float32"))
     depth_net, pose_net = build_models(
         cfg, device=device, generator=torch.Generator().manual_seed(0))
     if model_dir:

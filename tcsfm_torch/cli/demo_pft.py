@@ -50,7 +50,8 @@ def run(args: argparse.Namespace, depth_net, pose_net, device) -> dict:
     from tcsfm_torch.solver.pft import PFTOptimizer
 
     H, W = args.height, args.width
-    cfg = Config(iterations=args.iterations, num_scales=1)
+    cfg = Config(iterations=args.iterations, num_scales=1,
+                 compute_dtype="float32")
     seq = make_synthetic_sequence(8, (H, W), seed=4)
     ds = SfMWindowDataset(
         [seq], seq_len=3,
@@ -113,7 +114,8 @@ def main(argv=None) -> dict:
 
     device = resolve_device(args.device)
     depth_net, pose_net = build_models(
-        Config(iterations=args.iterations, num_scales=1), device=device,
+        Config(iterations=args.iterations, num_scales=1,
+               compute_dtype="float32"), device=device,
         generator=torch.Generator().manual_seed(0))
     return run(args, depth_net, pose_net, device)
 

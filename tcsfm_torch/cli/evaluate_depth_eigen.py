@@ -75,7 +75,7 @@ def predict(args: argparse.Namespace, depth_net, device) -> np.ndarray:
     from tcsfm_torch.config import Config
     from tcsfm_torch.data.eigen import EigenDataset
     from tcsfm_torch.data.loader import BatchLoader
-    from tcsfm_torch.utils.helpers import to_device
+    from tcsfm_torch.utils.helpers import to_device, to_numpy
 
     cfg = load_config(args.model_dir, Config())
     ds = EigenDataset(args.data_dir, mode="test")
@@ -87,7 +87,7 @@ def predict(args: argparse.Namespace, depth_net, device) -> np.ndarray:
         imgs = to_device(batch, ("target_img",), device)["target_img"]
         out.append(scaled_disparity(depth_net, imgs, cfg,
                                     not args.no_post_process))
-    return torch.cat(out).cpu().numpy()
+    return to_numpy(torch.cat(out))
 
 
 def run(args: argparse.Namespace, depth_net=None, device=None) -> dict:

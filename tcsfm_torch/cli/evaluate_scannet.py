@@ -99,7 +99,7 @@ def predict(args: argparse.Namespace, depth_net, pose_net, device,
     from tcsfm_torch.data.loader import BatchLoader
     from tcsfm_torch.data.scannet import ScanNetTestDataset
     from tcsfm_torch.eval.trajectory import np_se3_exp
-    from tcsfm_torch.utils.helpers import to_device
+    from tcsfm_torch.utils.helpers import to_device, to_numpy
 
     cfg = dataclasses.replace(load_config(args.model_dir, Config()),
                               iterations=args.iterations)
@@ -119,7 +119,7 @@ def predict(args: argparse.Namespace, depth_net, pose_net, device,
                                  x["source_imgs"][0], x["intrinsics"],
                                  post_process=not args.no_post_process,
                                  sampler=sampler)
-        disp_t = disp_t.cpu().numpy()
+        disp_t = to_numpy(disp_t)
         fwd = fwd.cpu().numpy().astype(np.float64)
         inv = inv.cpu().numpy().astype(np.float64)
         # metric scale: ×30 on translations before fusing (:101-103,108)

@@ -64,7 +64,8 @@ def config_of(args: argparse.Namespace):
     from tcsfm_torch.cli.common import load_config
     from tcsfm_torch.config import Config
 
-    cfg = load_config(args.model_dir, Config(iterations=2))
+    cfg = load_config(args.model_dir,
+                      Config(iterations=2, compute_dtype="float32"))
     if args.iterations:
         cfg = dataclasses.replace(cfg, iterations=args.iterations)
     return cfg

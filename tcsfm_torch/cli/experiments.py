@@ -55,7 +55,8 @@ def _config_and_seq(args: argparse.Namespace):
     from tcsfm_torch.data.dataset import SequenceData
     from tcsfm_torch.data.synthetic import make_synthetic_sequence
 
-    cfg = load_config(args.model_dir, Config(iterations=2))
+    cfg = load_config(args.model_dir,
+                      Config(iterations=2, compute_dtype="float32"))
     if args.iterations:
         cfg = dataclasses.replace(cfg, iterations=args.iterations)
     if args.synthetic:

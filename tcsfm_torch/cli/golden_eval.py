@@ -26,11 +26,12 @@ same flags, defaults, gates, printed JSON and exit code).
     subprocess; phase B on the card checks VO and PFT parity from the
     identical weights and continues training from the saved Adam state.
     The gates' and metrics' names say "tpu" as JAX's do; here they mean
-    the card. JAX's variant ``native`` trains in bfloat16 through its TPU
-    sampler, a precision the port does not have: the port trains in
-    float32 with TF32 off, as its training CLI does with those flags, so
-    it runs the continued training once and reports it under both names
-    (``match`` and ``native``).
+    the card. The variant ``match`` continues training in the warm
+    start's float32, ``native`` in bfloat16 (``compute_dtype``), as JAX's
+    does; both evaluate the trained weights in float32, as JAX's
+    ``matched_eval`` does. JAX's ``native`` also switches to its TPU
+    sampler, which the port does not have: both variants use the port's
+    float32 sampler.
 
 The from-scratch synthetic trajectory is chaotic per backend and per
 summation order (``apply_synthetic_gates``): the gates are JAX's, calibrated
@@ -171,12 +172,12 @@ def _depth_abs_rel(depth_net, seq, cfg, device) -> float:
     sequence's GT depth (synthetic scenes carry exact depth), the
     Eigen-protocol headline metric, so a depth-quality regression can't
     hide behind a still-passing pose gate."""
-    from tcsfm_torch.utils.helpers import disp_to_depth
+    from tcsfm_torch.utils.helpers import disp_to_depth, to_numpy
 
     imgs = torch.from_numpy(np.ascontiguousarray(seq.images)).to(device)
     disp = depth_net.eval()(imgs)[0][..., 0]
     _, depth = disp_to_depth(disp, cfg.min_depth, cfg.max_depth)
-    pred = depth.cpu().numpy()
+    pred = to_numpy(depth)
     gt = np.asarray(seq.depths)
     vals = []
     for i in range(len(gt)):
@@ -197,6 +198,7 @@ def _run_pft(cfg, depth_net, pose_net, test_seq, args, device):
     from tcsfm_torch.data.loader import BatchLoader
     from tcsfm_torch.eval.trajectory import compute_trajectory, np_se3_log
     from tcsfm_torch.solver.pft import PFTOptimizer
+    from tcsfm_torch.utils.helpers import to_numpy
 
     opts = PFTOptions(epochs=args.pft_epochs, lr=2e-4, avg_final_epochs=3,
                       num_source_imgs=2)
@@ -204,8 +206,7 @@ def _run_pft(cfg, depth_net, pose_net, test_seq, args, device):
     loader = BatchLoader(windows([test_seq]), 4, shuffle=False,
                          drop_last=False)
 
-    def host(t):
-        return t.detach().cpu().numpy()
+    host = to_numpy
 
     init_f, init_i, opt_f, opt_i, pft_losses = [], [], [], [], []
     for batch in loader:
@@ -267,7 +268,7 @@ def run_synthetic(args, device) -> dict:
     from tcsfm_torch.train.trainer import Trainer, create_train_state
 
     cfg = Config(iterations=2, img_resolution="low", minibatch=4,
-                 lr=args.lr, num_scales=1)
+                 lr=args.lr, compute_dtype="float32", num_scales=1)
     state = create_train_state(cfg, device=device,
                                generator=torch.Generator().manual_seed(0),
                                steps_per_epoch=32)
@@ -416,18 +417,23 @@ def continue_training(warm_dir: str, args, device, name: str = "match"
     ``device`` for ``args.tpu_epochs`` epochs on the synthetic gate's
     training windows, continuing the CPU run's seed line; returns the
     losses and the per-pair pose errors after, with their ratios to the
-    warm-start values."""
+    warm-start values. ``name`` ``native`` trains in bfloat16, ``match``
+    in the warm start's dtype; the pose errors come from the trained
+    weights in the warm start's dtype either way."""
     from tcsfm_torch.config import Config
     from tcsfm_torch.data.loader import BatchLoader
     from tcsfm_torch.eval.vo import VOEvaluator
+    from tcsfm_torch.infer import build_models
     from tcsfm_torch.train.checkpoint import load_checkpoint
     from tcsfm_torch.train.trainer import Trainer, create_train_state
 
     with open(os.path.join(warm_dir, "warm_metrics.json")) as f:
         cpu = json.load(f)
     cfg = Config.load(os.path.join(warm_dir, "config.json"))
+    train_cfg = cfg.replace(compute_dtype="bfloat16") if name == "native" \
+        else cfg
     train_seqs, test_seq = synthetic_data(args)
-    state = create_train_state(cfg, device=device, steps_per_epoch=32)
+    state = create_train_state(train_cfg, device=device, steps_per_epoch=32)
     state, start_epoch, _ = load_checkpoint(warm_dir, state)
     ds = windows(train_seqs)
     trainer = Trainer(state)
@@ -438,9 +444,13 @@ def continue_training(warm_dir: str, args, device, name: str = "match"
         losses.append(float(trainer.run_epoch(loader, ep, "train")["total"]))
         print(f"# [{name}] {device.type} epoch {ep}: loss {losses[-1]:.5f}",
               flush=True)
-    m_after = _pose_metrics(VOEvaluator(cfg, state.depth_net, state.pose_net,
-                                        dnet_rescaling=False, device=device),
-                            test_seq)
+    nets = (state.depth_net, state.pose_net)
+    if train_cfg != cfg:
+        nets = build_models(cfg, device=device)
+        for net, trained in zip(nets, (state.depth_net, state.pose_net)):
+            net.load_state_dict(trained.state_dict())
+    m_after = _pose_metrics(VOEvaluator(cfg, *nets, dnet_rescaling=False,
+                                        device=device), test_seq)
     return {
         "losses": losses,
         "loss_final": losses[-1],
@@ -536,13 +546,6 @@ def run_warm_start(args, device) -> dict:
     for name in args.warm_variants.split(","):
         if name not in ("match", "native"):
             raise SystemExit(f"unknown warm variant {name!r}")
-        if variants:
-            # 'native' (bfloat16 + the TPU sampler in JAX) runs as 'match'
-            # here: one float32 run, reported under both names
-            print(f"# [{name}] runs as float32 on the card: reported from "
-                  f"the run of [{next(iter(variants))}]", flush=True)
-            variants[name] = dict(next(iter(variants.values())))
-            continue
         variants[name] = continue_training(warm_dir, args, device, name)
 
     raw = {
@@ -673,9 +676,8 @@ def parse_args(argv=None) -> argparse.Namespace:
                    help="continued-training epochs on the card")
     p.add_argument("--warm_variants", type=str, default="match,native",
                    help="comma list: 'match' = float32 (the device is the "
-                        "only variable); 'native' = the JAX package's "
-                        "bfloat16/TPU-sampler config, which the port runs "
-                        "as float32 (reported from the same run)")
+                        "only variable); 'native' = bfloat16 networks "
+                        "(the port's float32 sampler)")
     p.add_argument("--warm_vo_pose_gate", type=float, default=0.105,
                    help="max RMS(cpu - card) eval pose delta / pose RMS "
                         "from identical weights")

@@ -123,7 +123,8 @@ def config_of(args: argparse.Namespace):
     from tcsfm_torch.cli.common import load_config
     from tcsfm_torch.config import Config
 
-    cfg = load_config(args.model_dir, Config(iterations=2))
+    cfg = load_config(args.model_dir,
+                      Config(iterations=2, compute_dtype="float32"))
     return dataclasses.replace(
         cfg, iterations=cfg.iterations + args.extra_iterations)
 
@@ -221,7 +222,7 @@ def _chain_refine_sequence(seq, args, cfg, depth_net, pose_net, device,
     from tcsfm_torch.eval.scale_recovery import scale_recovery_per_sample
     from tcsfm_torch.solver.ba import chain_ba
     from tcsfm_torch.solver.coupled import solve_pose_iteratively
-    from tcsfm_torch.utils.helpers import disp_to_depth
+    from tcsfm_torch.utils.helpers import disp_to_depth, to_numpy
 
     def put(x):
         return torch.from_numpy(np.ascontiguousarray(x, np.float32)).to(device)
@@ -248,7 +249,7 @@ def _chain_refine_sequence(seq, args, cfg, depth_net, pose_net, device,
             scales.append(scale_recovery_per_sample(
                 d, K1.expand(len(d), 3, 3), cfg.camera_height / METRIC_SCALE))
     depths = torch.cat(depths)                                  # [N,H,W,1]
-    frame_scale = torch.cat(scales).cpu().numpy()               # [N]
+    frame_scale = to_numpy(torch.cat(scales))             # [N]
 
     if args.init_gt_pert > 0:
         # control: GT edge twists + seeded noise instead of the pose net,
@@ -393,7 +394,8 @@ def run(args: argparse.Namespace, depth_net, pose_net, device,
     from tcsfm_torch.data.loader import BatchLoader
     from tcsfm_torch.data.transforms import WindowTransform
     from tcsfm_torch.solver.ba import fuse_pose_estimates
-    from tcsfm_torch.utils.helpers import resolve_device, to_device
+    from tcsfm_torch.utils.helpers import (resolve_device, to_device,
+                                           to_numpy)
 
     device = resolve_device(device)
     cfg = config_of(args)
@@ -422,8 +424,7 @@ def run(args: argparse.Namespace, depth_net, pose_net, device,
         info_f, info_i, cost_last = [], [], []
         scales_init, scales_opt = [], []
 
-        def np_(t):
-            return t.detach().cpu().numpy()
+        np_ = to_numpy
 
         def drain_one():
             n, out = pending.popleft()

@@ -17,9 +17,11 @@ inverse reconstruction loss. ``results_dir/date`` receives
 reads and writes alike; ``--load_from_checkpoint`` resumes a run of
 either package there (or in ``--pretrained_dir``).
 
-Runs on the card unless ``--device cpu``; with no card it raises. The port
-computes in float32 with TF32 off, whatever ``--compute_dtype`` asks (the
-run prints both). ``--no_mxu_warp``, ``--fast_sampler`` and
+Runs on the card unless ``--device cpu``; with no card it raises. Both
+networks compute in ``--compute_dtype`` (``bfloat16``, the JAX package's
+default, or ``float32``; anything else is refused) on float32 parameters,
+and the run prints the dtype it computes in; TF32 stays off, so float32
+is float32. ``--no_mxu_warp``, ``--fast_sampler`` and
 ``--mixed_sampler`` pick among the JAX package's TPU sampler modes,
 workarounds an f32 gather on the card does not need: the port has one
 sampler, exact in f32, and takes them without effect.
@@ -53,7 +55,7 @@ import time
 import torch
 import torch.distributed as dist
 
-from tcsfm_torch.config import COMPUTE_DTYPE, Config
+from tcsfm_torch.config import Config
 from tcsfm_torch.data.dataset import SequenceData, SfMWindowDataset
 from tcsfm_torch.data.loader import BatchLoader
 from tcsfm_torch.data.synthetic import (make_drive_sequence,
@@ -97,8 +99,9 @@ def parse_args(argv=None):
     p.add_argument("--freeze_depthnet", action="store_true")
     p.add_argument("--freeze_posenet", action="store_true")
     p.add_argument("--compute_dtype", type=str, default="bfloat16",
-                   help="the JAX package's network dtype; the port "
-                        "computes in float32")
+                   choices=["bfloat16", "float32"],
+                   help="the networks' compute dtype (the parameters stay "
+                        "float32)")
     p.add_argument("--no_mxu_warp", action="store_true",
                    help="no effect: the JAX package's TPU sampler switch")
     p.add_argument("--fast_sampler", action="store_true",
@@ -144,6 +147,7 @@ def build_config(args) -> Config:
         min_depth=args.min_depth, max_depth=args.max_depth,
         freeze_depthnet=args.freeze_depthnet,
         freeze_posenet=args.freeze_posenet,
+        compute_dtype=args.compute_dtype,
         ckpt_dir=os.path.join(args.results_dir, args.date),
         load_from_checkpoint=args.load_from_checkpoint,
         load_best_model=args.load_best_model,
@@ -252,8 +256,8 @@ def _train(args, cfg: Config, mesh, rank: int, world: int) -> Trainer:
     device = mesh.device if mesh is not None else resolve_device(args.device)
     main_rank = rank == 0
     if main_rank:
-        print(f"compute dtype: the run asks {args.compute_dtype}, the port "
-              f"computes in {COMPUTE_DTYPE} (TF32 off)")
+        print(f"compute dtype: {cfg.compute_dtype} (float32 parameters, "
+              f"TF32 off)")
         if world > 1:
             print(f"data parallel over {world} ranks, {cfg.minibatch // world}"
                   f" of the {cfg.minibatch} rows each")

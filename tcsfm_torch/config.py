@@ -8,14 +8,16 @@ reads what the JAX package's ``Config.to_json`` writes (unknown keys are
 skipped), and ``PFTOptions`` with the fields PFT reads.
 ``flow_type='classical'`` feeds the pose net two Farneback flow channels
 (8 input channels, ``pose_input_channels``) on the one-shot pose paths,
-as in the JAX package (``ops/flow.py``). ``to_json`` adds
-``"compute_dtype": "float32"`` (the port computes in float32 with TF32
-off), so the JAX package reads a file the port wrote as the same run;
-``json_notes`` names what the port does not take from a file the JAX
-package wrote (another compute dtype, its TPU sampler fields), and the
-CLIs print it. ``mesh_shape``/``mesh_axes`` are read and written as the
-JAX package's; the port's data parallelism takes its ranks from the
-launcher (``tcsfm_torch.dist``), not from them.
+as in the JAX package (``ops/flow.py``). ``compute_dtype`` is the JAX
+package's field with its default: ``"bfloat16"`` runs both networks'
+convolutions in bfloat16 on float32 parameters (geometry, sampler and
+pose composition stay float32), ``"float32"`` runs them in float32 with
+TF32 off; ``to_json`` writes the value, so either package reads a file
+the other wrote as the same run. ``json_notes`` names the keys of a file
+the JAX package wrote that the port does not read (its TPU sampler
+fields), and the CLIs print it. ``mesh_shape``/``mesh_axes`` are read
+and written as the JAX package's; the port's data parallelism takes its
+ranks from the launcher (``tcsfm_torch.dist``), not from them.
 ``l_ssim=False`` is refused by both constructors: the loss stack's diff
 image then keeps its 3 channels, which the JAX package's loss cannot take
 either. The port does not import ``tcsfm``: its ``__init__`` pulls in JAX.
@@ -28,9 +30,8 @@ import json
 from dataclasses import dataclass
 from typing import List, Tuple
 
-# the port's compute dtype, written into every config file it saves (the
-# JAX package's default is bfloat16, tcsfm/config.py:80)
-COMPUTE_DTYPE = "float32"
+# the networks' compute dtypes the port takes (tcsfm/config.py:80)
+COMPUTE_DTYPES = ("float32", "bfloat16")
 
 # Image resolutions of the reference preprocessing (tcsfm/config.py:17-22).
 RESOLUTIONS = {
@@ -91,6 +92,10 @@ class Config:
     l_smooth: bool = True
     l_smooth_weight: float = 0.05
 
+    # the networks' conv dtype (tcsfm/config.py:80); parameters, optimizer
+    # state, geometry and the sampler stay float32
+    compute_dtype: str = "bfloat16"
+
     # torch.utils.checkpoint each coupled iteration in the training step:
     # the backward recomputes the pose net and the warp of each iteration
     # instead of keeping their activations (tcsfm/config.py:105)
@@ -113,10 +118,20 @@ class Config:
                 "l_ssim=False is not supported: without SSIM the photometric "
                 "diff image keeps 3 channels and the loss cannot be formed "
                 "(the JAX package's loss fails on it too)")
+        if self.compute_dtype not in COMPUTE_DTYPES:
+            raise ValueError(f"compute_dtype {self.compute_dtype!r}: the "
+                             f"port computes in one of {COMPUTE_DTYPES}")
 
     @property
     def image_size(self) -> Tuple[int, int]:
         return RESOLUTIONS[self.img_resolution]
+
+    @property
+    def dtype(self) -> "torch.dtype":
+        """``compute_dtype`` as a torch dtype."""
+        import torch
+
+        return getattr(torch, self.compute_dtype)
 
     @property
     def num_source_imgs(self) -> int:
@@ -130,7 +145,7 @@ class Config:
         return dataclasses.replace(self, **kw)
 
     def to_json(self) -> str:
-        d = dict(dataclasses.asdict(self), compute_dtype=COMPUTE_DTYPE)
+        d = dataclasses.asdict(self)
         return json.dumps(d, indent=2, sort_keys=True)
 
     @classmethod
@@ -151,20 +166,14 @@ class Config:
 
 
 def json_notes(s: str) -> List[str]:
-    """Lines naming what the port does not take from the config JSON ``s``:
-    the compute dtype it asks for beside the port's, and its keys that
-    ``Config`` has no field for (the JAX package's TPU sampler
-    settings)."""
+    """Lines naming the keys of the config JSON ``s`` that ``Config`` has
+    no field for (the JAX package's TPU sampler settings)."""
     d = json.loads(s)
     names = {f.name for f in dataclasses.fields(Config)}
-    asked = d.get("compute_dtype", "bfloat16")
-    notes = [f"compute dtype: the config asks {asked}, the port computes "
-             f"in {COMPUTE_DTYPE} (TF32 off)"]
-    unread = sorted(set(d) - names - {"compute_dtype"})
+    unread = sorted(set(d) - names)
     if unread:
-        notes.append("config keys the port does not read: "
-                     + ", ".join(unread))
-    return notes
+        return ["config keys the port does not read: " + ", ".join(unread)]
+    return []
 
 
 @dataclass

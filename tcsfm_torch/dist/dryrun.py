@@ -52,7 +52,9 @@ class _Rows:
 def _dryrun_config(n: int):
     from tcsfm_torch.config import Config
 
-    return Config(iterations=2, num_scales=1, minibatch=max(n, 2))
+    # float32, as __graft_entry__.dryrun_multichip's config
+    return Config(iterations=2, num_scales=1, minibatch=max(n, 2),
+                  compute_dtype="float32")
 
 
 def _state(cfg, mesh: Optional[Mesh], device):

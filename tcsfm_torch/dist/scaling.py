@@ -63,26 +63,28 @@ def _mean_ms(fn, device: torch.device, reps: int = 10) -> float:
 
 
 def step_seconds(batch_per_device: int, image_hw, iterations: int,
-                 timed_steps: int, sources: int, device=None) -> Dict:
+                 timed_steps: int, sources: int, device=None,
+                 compute_dtype: str = "float32") -> Dict:
     """One rank's part of a scaling row: the mean seconds of a training step
     on the rank's rows, after one untimed step, and the mean ms of the
     step's collectives alone: the gradients' all-reduce (one bucket) and
     one small all-reduce (a BatchNorm layer's sums). Runs in a launched
-    rank."""
+    rank. The networks compute in ``compute_dtype``."""
     from tcsfm_torch.config import Config
     from tcsfm_torch.dist.mesh import shard_process_local_batch
     from tcsfm_torch.train.trainer import (all_reduce_grads,
                                            create_train_state, train_step)
 
-    # the port computes in f32 with TF32 off (a spawned rank starts with
-    # torch's defaults, which let cuDNN convolve in TF32)
+    # float32 is float32: TF32 off (a spawned rank starts with torch's
+    # defaults, which let cuDNN convolve in TF32)
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     rank, world = process_info()
     mesh = make_mesh(world, device=device)
     h, w = image_hw
     cfg = Config(iterations=iterations, num_scales=1,
-                 minibatch=batch_per_device * world)
+                 minibatch=batch_per_device * world,
+                 compute_dtype=compute_dtype)
     state = create_train_state(cfg, mesh=mesh,
                                generator=torch.Generator().manual_seed(0),
                                steps_per_epoch=100)
@@ -111,8 +113,10 @@ def measure_scaling(world_sizes: Optional[Sequence[int]] = None,
                     batch_per_device: int = 2, image_hw=(32, 64),
                     iterations: int = 2, timed_steps: int = 3,
                     sources: int = 2, device=None,
+                    compute_dtype: str = "float32",
                     verbose: bool = True) -> List[Dict]:
-    """Weak-scaling curve of the data-parallel step.
+    """Weak-scaling curve of the data-parallel step, the networks in
+    ``compute_dtype`` (float32 by default, as ``tcsfm/dist/scaling.py:53``).
 
     ``world_sizes`` None takes 1, 2, 4, 8 up to the cards present (CPU:
     1 and 2). Returns one dict per world size: {n_devices, global_batch,
@@ -133,7 +137,8 @@ def measure_scaling(world_sizes: Optional[Sequence[int]] = None,
     for n in world_sizes:
         parts[n] = launch(step_seconds, n, (batch_per_device,
                                             tuple(image_hw), iterations,
-                                            timed_steps, sources, device),
+                                            timed_steps, sources, device,
+                                            compute_dtype),
                           device=device)
         if verbose:
             r = scaling_rows(parts, batch_per_device)[-1]
@@ -177,10 +182,13 @@ def main(argv=None) -> None:
     p.add_argument("--width", type=int, default=640)
     p.add_argument("--iterations", type=int, default=4)
     p.add_argument("--timed_steps", type=int, default=5)
+    p.add_argument("--compute_dtype", default="float32",
+                   choices=["float32", "bfloat16"])
     a = p.parse_args(argv)
     measure_scaling(a.world_sizes or None, a.batch_per_device,
                     (a.height, a.width), a.iterations, a.timed_steps,
-                    device="cpu" if a.cpu else None)
+                    device="cpu" if a.cpu else None,
+                    compute_dtype=a.compute_dtype)
 
 
 if __name__ == "__main__":

@@ -24,6 +24,7 @@ import torch
 from tcsfm_torch.geom.warp import Sampler, inverse_warp2
 from tcsfm_torch.ops.grid_sample import grid_sample
 from tcsfm_torch.solver.coupled import blend_error, solve_pose_iteratively
+from tcsfm_torch.utils.helpers import to_numpy
 
 
 def photometric_error(target_img, source_img, target_depth, source_depth,
@@ -67,7 +68,7 @@ def loss_surface(target_img, source_img, target_depth, source_depth,
             rows.append(photometric_error(target_img, source_img,
                                           target_depth, source_depth, p, K,
                                           automask=automask, sampler=sampler))
-        return torch.stack(rows).cpu().numpy()
+        return to_numpy(torch.stack(rows))
 
     return {"trans": sweep(trans_offsets, 2), "yaw": sweep(yaw_offsets, 4)}
 

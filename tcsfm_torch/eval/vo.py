@@ -38,7 +38,7 @@ from tcsfm_torch.ops.flow import pose_flows
 from tcsfm_torch.ops.grid_sample import grid_sample
 from tcsfm_torch.solver.coupled import solve_pose, solve_pose_iteratively
 from tcsfm_torch.utils.helpers import (disp_to_depth, resolve_device,
-                                       to_device)
+                                       to_device, to_numpy)
 
 METRIC_SCALE = 30.0
 
@@ -130,7 +130,7 @@ class VOEvaluator:
             gts.append(batch["gt_lie_alg"][0])
         fwd = torch.cat(fwd).cpu().numpy()
         inv = torch.cat(inv).cpu().numpy()
-        scales = torch.cat(scales).cpu().numpy().reshape(-1, 1)
+        scales = to_numpy(torch.cat(scales)).reshape(-1, 1)
         gts = np.concatenate(gts)
 
         fwd[:, 0:3] *= METRIC_SCALE

@@ -40,12 +40,18 @@ def backproject(depth: torch.Tensor, K: torch.Tensor) -> torch.Tensor:
     """Depth [B, H, W] or [B, H, W, 1] + intrinsics [B, 3, 3] → [B, 3, H*W].
 
     cam = depth * K^{-1} [x y 1]^T
+
+    The pixel grid is made in the depth's dtype and the product promotes
+    to the wider of K's and the depth's, as ``jnp.matmul`` does
+    (``tcsfm/geom/camera.py:51-62``): a bfloat16 depth with float32 K
+    gives float32 points from a bfloat16-rounded grid.
     """
     if depth.dim() == 4:
         depth = depth[..., 0]
     b, h, w = depth.shape
+    dtype = torch.promote_types(K.dtype, depth.dtype)
     grid = pixel_grid(h, w, depth.dtype, depth.device)       # [3, HW]
-    rays = inv_intrinsics(K) @ grid                          # [B, 3, HW]
+    rays = inv_intrinsics(K).to(dtype) @ grid.to(dtype)      # [B, 3, HW]
     return rays * depth.reshape(b, 1, h * w)
 
 

@@ -86,7 +86,11 @@ def inverse_warp2(img: torch.Tensor, depth: torch.Tensor,
     if sample_depth:
         # one 4-channel call samples image and depth together, as the JAX
         # MXU path packs them; the depth rides as the sampler's tail, so the
-        # d_img of a data image is never formed
+        # d_img of a data image is never formed. A bfloat16 net's depth
+        # joins the float32 image promoted, as jnp.concatenate promotes it
+        # (tcsfm/geom/warp.py:179); the samplers take float32 only.
+        ref_depth = ref_depth.to(torch.promote_types(img.dtype,
+                                                     ref_depth.dtype))
         sampled = sampler(img, coords, ref_depth)
         warped_img, projected_depth = sampled[..., :3], sampled[..., 3:4]
     else:

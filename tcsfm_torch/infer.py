@@ -63,14 +63,16 @@ def _init_weights(model: nn.Module, generator: torch.Generator,
 def build_models(cfg: Config, device=None,
                  generator: Optional[torch.Generator] = None
                  ) -> Tuple[DepthNet, PoseNet]:
-    """(depth_net, pose_net) in eval mode on ``device``, with seeded random
-    weights drawn from ``generator`` (a CPU generator; seed 0 if None).
-    Load trained weights with ``load_state_dict`` (see ``models.convert``)."""
+    """(depth_net, pose_net) in eval mode on ``device``, computing in
+    ``cfg.compute_dtype`` on float32 parameters, with seeded random weights
+    drawn from ``generator`` (a CPU generator; seed 0 if None). Load
+    trained weights with ``load_state_dict`` (see ``models.convert``; the
+    state dicts are float32 in either dtype)."""
     device = resolve_device(device)
     if generator is None:
         generator = torch.Generator().manual_seed(0)
-    depth_net = DepthNet(num_scales=cfg.num_scales)
-    pose_net = PoseNet(cfg.pose_input_channels)
+    depth_net = DepthNet(num_scales=cfg.num_scales, dtype=cfg.dtype)
+    pose_net = PoseNet(cfg.pose_input_channels, dtype=cfg.dtype)
     _init_weights(depth_net, generator, uniform=False)
     _init_weights(pose_net, generator, uniform=True)
     return depth_net.to(device).eval(), pose_net.to(device).eval()
@@ -94,7 +96,8 @@ def coupled_forward(depth_net: DepthNet, pose_net: PoseNet, target_img,
 
     Returns:
       poses [S, B, 6], poses_inv [S, B, 6], the target's disparity
-      [B, H, W, 1] and the pose chain [2SB, cfg.iterations, 6].
+      [B, H, W, 1] (in the depth net's compute dtype) and the pose chain
+      [2SB, cfg.iterations, 6].
     """
     device = resolve_device(device)
     for net in (depth_net, pose_net):

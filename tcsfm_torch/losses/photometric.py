@@ -38,7 +38,7 @@ from tcsfm_torch.config import Config
 from tcsfm_torch.dist.mesh import Mesh
 from tcsfm_torch.geom.warp import Sampler, inverse_warp2
 from tcsfm_torch.ops.grid_sample import grid_sample
-from tcsfm_torch.utils.helpers import disp_to_depth
+from tcsfm_torch.utils.helpers import disp_to_depth, weak
 
 _C1 = 0.01 ** 2
 _C2 = 0.03 ** 2
@@ -75,7 +75,7 @@ def smooth_loss(disp: torch.Tensor, img: torch.Tensor) -> torch.Tensor:
     """Edge-aware disparity smoothness with mean normalization
     (losses.py:43-61). disp: [B, H, W, 1]; img: [B, H, W, C]."""
     mean_disp = disp.mean(dim=(1, 2), keepdim=True)
-    d = disp / (mean_disp + 1e-7)
+    d = disp / (mean_disp + weak(1e-7, mean_disp))
     grad_disp_x = (d[:, :, :-1] - d[:, :, 1:]).abs()
     grad_disp_y = (d[:, :-1] - d[:, 1:]).abs()
     grad_img_x = (img[:, :, :-1] - img[:, :, 1:]).abs().mean(-1, keepdim=True)

@@ -19,6 +19,13 @@ Flax's rule (``layers.BatchNorm2d``).
 to the last upconv's conv, then the fused full-resolution tail
 (``ops.decoder_tail``, a CUDA kernel on the card) in place of iconv4, the
 feature conv and the head.
+
+``dtype`` is the compute dtype of every layer (``tcsfm/models/depth.py``):
+the input is normalized in float32 and then cast to it, the decoder's
+ELUs and sigmoids run in it, so a bfloat16 net's disparity is bfloat16,
+as the JAX package's is. The tail route of a bfloat16 net runs the bf16
+tail and casts its float32 disparity to bfloat16, as
+``experiments/decoder_tail.py:285`` does.
 """
 
 from __future__ import annotations
@@ -42,38 +49,46 @@ DECODER_FEATURES = (512,) + UPCONV_PLANES
 class ResnetEncoder(nn.Module):
     """Holds the ResNet as ``encoder`` to keep the ``encoder.encoder.*`` keys."""
 
-    def __init__(self):
+    def __init__(self, dtype: torch.dtype = torch.float32):
         super().__init__()
-        self.encoder = ResNet18Encoder()
+        self.encoder = ResNet18Encoder(dtype=dtype)
 
     def forward(self, x: torch.Tensor) -> List[torch.Tensor]:
         return self.encoder(x)
 
 
 class DepthNet(nn.Module):
-    def __init__(self, num_scales: int = 1):
+    def __init__(self, num_scales: int = 1,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         self.num_scales = num_scales
-        self.encoder = ResnetEncoder()
+        self.compute_dtype = dtype
+        self.encoder = ResnetEncoder(dtype)
         planes = (512,) + UPCONV_PLANES
         self.depth_upconvs = nn.ModuleList(
-            nn.Sequential(Upsample2x(), ReflConv(planes[i], planes[i + 1]),
+            nn.Sequential(Upsample2x(),
+                          ReflConv(planes[i], planes[i + 1], dtype=dtype),
                           nn.ELU())
             for i in range(len(UPCONV_PLANES)))
         self.iconvs = nn.ModuleList(
-            nn.Sequential(ReflConv(p, p), nn.ELU()) for p in UPCONV_PLANES)
+            nn.Sequential(ReflConv(p, p, dtype=dtype), nn.ELU())
+            for p in UPCONV_PLANES)
         feats_in = DECODER_FEATURES[-num_scales:]
         self.feature_convs = nn.ModuleList(
-            nn.Sequential(ReflConv(c, 8), nn.ELU()) for c in feats_in)
+            nn.Sequential(ReflConv(c, 8, dtype=dtype), nn.ELU())
+            for c in feats_in)
         # head k reads its scale's 8 features and those of every coarser scale
         self.predict_disps = nn.ModuleList(
-            nn.Sequential(ReflConv(8 * (k + 1), 1), nn.Sigmoid())
+            nn.Sequential(ReflConv(8 * (k + 1), 1, dtype=dtype), nn.Sigmoid())
             for k in range(num_scales))
 
     def encode(self, x: torch.Tensor) -> List[torch.Tensor]:
         """Image [B, H, W, 3] → 5 NCHW skip features, after the reference's
-        (x - 0.45) / 0.22 input normalization."""
+        (x - 0.45) / 0.22 input normalization (in the images' float32, then
+        cast to the compute dtype)."""
         x = (x.permute(0, 3, 1, 2) - 0.45) / 0.22
+        if self.compute_dtype != torch.float32:
+            x = x.to(self.compute_dtype)
         return self.encoder(x)
 
     def _trunk(self, skips: Sequence[torch.Tensor]) -> List[torch.Tensor]:
@@ -132,11 +147,12 @@ def make_tail_apply(depth_net: DepthNet) -> Callable[[torch.Tensor],
                                                      List[torch.Tensor]]:
     """imgs [N, H, W, 3] -> [disparity [N, H, W, 1]] through the fused tail:
     ``solve_disp``'s ``depth_apply`` in place of the net itself (the
-    counterpart of ``experiments/decoder_tail.py::make_tail_apply``).
-    num_scales == 1 only."""
+    counterpart of ``experiments/decoder_tail.py::make_tail_apply``). The
+    tail of the net's dtype (``z``'s: the f32 or the bf16 tail), its
+    disparity cast to that dtype. num_scales == 1 only."""
 
     def apply(imgs: torch.Tensor) -> List[torch.Tensor]:
         z = depth_net.decode_tail_input(depth_net.encode(imgs))
-        return [decoder_tail(z, *tail_weights(depth_net))]
+        return [decoder_tail(z, *tail_weights(depth_net)).to(z.dtype)]
 
     return apply

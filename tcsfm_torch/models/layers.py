@@ -5,6 +5,17 @@ exact regroupings for the TPU (space-to-depth stems, subpixel phase convs,
 phase-space decoder tail); each has the same parameters and computes the
 same function up to f32 summation order, so the port keeps the literal
 conv and the parameter names of the reference's ``state_dict``.
+
+Each layer takes ``dtype``, its compute dtype (Flax's ``dtype``, default
+float32); parameters stay float32. In bfloat16 the casts sit where the
+JAX modules place them, written out (not ``torch.autocast``, whose op
+lists place them elsewhere): a conv casts its input, weight and bias to
+bfloat16 and adds the bias after the conv (``Conv2D``); ``WSConv``
+standardizes its weight in float32 and then casts it; ``GroupNorm16`` and
+``BatchNorm2d`` normalize in float32 from the bfloat16 input and round
+their output to bfloat16, the running statistics staying float32 (Flax's
+``force_float32_reductions``). In float32 each layer runs its float32
+code unchanged.
 """
 
 from __future__ import annotations
@@ -19,16 +30,42 @@ from torch import nn
 from tcsfm_torch.dist.mesh import Mesh, all_reduce_sum
 
 
+def cast_conv(x: torch.Tensor, weight: torch.Tensor,
+              bias: Optional[torch.Tensor], dtype: torch.dtype, stride=1,
+              padding=0) -> torch.Tensor:
+    """A conv in ``dtype`` as the JAX package's ``Conv2D`` computes it:
+    input and weight cast to ``dtype``, the conv, then the bias cast to
+    ``dtype`` added (``layers.py:315-326``)."""
+    y = F.conv2d(x.to(dtype), weight.to(dtype), None, stride, padding)
+    return y if bias is None else y + bias.to(dtype)[:, None, None]
+
+
+class Conv2d(nn.Conv2d):
+    """``nn.Conv2d`` (same parameters and keys) that computes in ``dtype``
+    (``cast_conv``); float32 runs ``nn.Conv2d`` itself."""
+
+    def __init__(self, *args, dtype: torch.dtype = torch.float32, **kw):
+        super().__init__(*args, **kw)
+        self.compute_dtype = dtype
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.compute_dtype == torch.float32:
+            return super().forward(x)
+        return cast_conv(x, self.weight, self.bias, self.compute_dtype,
+                         self.stride, self.padding)
+
+
 class ReflConv(nn.Module):
     """Reflection-pad + 3x3 conv, the monodepth2 Conv3x3 (``layers.py:110-130``).
 
     ``conv`` carries the reference's ``<prefix>.conv.{weight,bias}`` keys.
     """
 
-    def __init__(self, in_channels: int, out_channels: int, kernel: int = 3):
+    def __init__(self, in_channels: int, out_channels: int, kernel: int = 3,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         self.pad = (kernel - 1) // 2
-        self.conv = nn.Conv2d(in_channels, out_channels, kernel)
+        self.conv = Conv2d(in_channels, out_channels, kernel, dtype=dtype)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         p = self.pad
@@ -52,13 +89,19 @@ class BatchNorm2d(nn.BatchNorm2d):
     both through the differentiable all-reduce, and the running statistics
     move by the same rule from those global values. At world size 1, and
     outside the block, the path is the one-card one.
+
+    With a bfloat16 ``dtype`` the layer runs that float32 computation on
+    the input cast to float32 and rounds its output to bfloat16, as Flax's
+    BatchNorm does under ``force_float32_reductions`` (its statistics, the
+    normalization, the scale and bias, all float32).
     """
 
     MOMENTUM = 0.9    # Flax's: the weight of the old running value
     mesh: Optional[Mesh] = None     # set by ``global_batch_stats``
 
-    def __init__(self, channels: int):
+    def __init__(self, channels: int, dtype: torch.dtype = torch.float32):
         super().__init__(channels, eps=1e-5)
+        self.compute_dtype = dtype
 
     def _move_running(self, mean: torch.Tensor, var: torch.Tensor) -> None:
         self.running_mean.mul_(self.MOMENTUM).add_(
@@ -84,6 +127,11 @@ class BatchNorm2d(nn.BatchNorm2d):
         return dev * scale[None, :, None, None] + self.bias[None, :, None, None]
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.compute_dtype == torch.float32:
+            return self._forward(x)
+        return self._forward(x.float()).to(self.compute_dtype)
+
+    def _forward(self, x: torch.Tensor) -> torch.Tensor:
         if not self.training:
             return super().forward(x)
         if self.mesh is not None and self.mesh.world_size > 1:
@@ -110,12 +158,13 @@ def global_batch_stats(net: nn.Module, mesh: Optional[Mesh]):
             m.mesh = None
 
 
-class WSConv(nn.Conv2d):
+class WSConv(Conv2d):
     """Weight-standardized conv, zero padding (``layers.py:301-377``).
 
     Per output channel the kernel loses its mean and is divided by its
     sample standard deviation (Bessel-corrected) plus 1e-5, as the
-    reference's ``weight.view(O, -1).std(dim=1)`` does.
+    reference's ``weight.view(O, -1).std(dim=1)`` does; in the weight's
+    own dtype (float32), then cast to ``dtype`` for the conv.
     """
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -123,15 +172,26 @@ class WSConv(nn.Conv2d):
         wc = w - w.mean(dim=(1, 2, 3), keepdim=True)
         n = w[0].numel()
         std = torch.sqrt((wc * wc).sum(dim=(1, 2, 3), keepdim=True) / (n - 1))
-        return F.conv2d(x, wc / (std + 1e-5), self.bias, self.stride,
-                        self.padding)
+        if self.compute_dtype == torch.float32:
+            return F.conv2d(x, wc / (std + 1e-5), self.bias, self.stride,
+                            self.padding)
+        return cast_conv(x, wc / (std + 1e-5), self.bias, self.compute_dtype,
+                         self.stride, self.padding)
 
 
 class GroupNorm16(nn.GroupNorm):
-    """GroupNorm with 16 groups and eps 1e-5 (``layers.py:427-437``)."""
+    """GroupNorm with 16 groups and eps 1e-5 (``layers.py:427-437``), in
+    float32; a bfloat16 ``dtype`` casts the input up and the output
+    back."""
 
-    def __init__(self, channels: int):
+    def __init__(self, channels: int, dtype: torch.dtype = torch.float32):
         super().__init__(16, channels, eps=1e-5)
+        self.compute_dtype = dtype
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.compute_dtype == torch.float32:
+            return super().forward(x)
+        return super().forward(x.float()).to(self.compute_dtype)
 
 
 class ConvGN(nn.Sequential):
@@ -140,11 +200,12 @@ class ConvGN(nn.Sequential):
     Indices 0 and 1 give the reference's ``conv{i}.0`` / ``conv{i}.1`` keys.
     """
 
-    def __init__(self, in_channels: int, out_channels: int, kernel: int = 3):
+    def __init__(self, in_channels: int, out_channels: int, kernel: int = 3,
+                 dtype: torch.dtype = torch.float32):
         super().__init__(
             WSConv(in_channels, out_channels, kernel, stride=2,
-                   padding=(kernel - 1) // 2),
-            GroupNorm16(out_channels),
+                   padding=(kernel - 1) // 2, dtype=dtype),
+            GroupNorm16(out_channels, dtype=dtype),
             nn.ReLU(),
         )
 

@@ -5,7 +5,8 @@ torchvision's layout and names: conv1 (7x7, s2) → bn1 → ReLU → maxpool
 [64, 128, 256, 512] channels, emitting the 5 skip features the decoder
 reads. BatchNorm (eps 1e-5) uses the running statistics in eval mode; in
 train mode it normalizes with the batch's and updates the running ones by
-Flax's rule (``layers.BatchNorm2d``).
+Flax's rule (``layers.BatchNorm2d``). ``dtype`` is the compute dtype of
+every conv and BatchNorm (``tcsfm/models/resnet.py:39-59,81-100``).
 """
 
 from __future__ import annotations
@@ -15,22 +16,26 @@ from typing import List
 import torch
 from torch import nn
 
-from tcsfm_torch.models.layers import BatchNorm2d
+from tcsfm_torch.models.layers import BatchNorm2d, Conv2d
 
 
 class BasicBlock(nn.Module):
-    def __init__(self, in_channels: int, channels: int, stride: int = 1):
+    def __init__(self, in_channels: int, channels: int, stride: int = 1,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
-        self.conv1 = nn.Conv2d(in_channels, channels, 3, stride, 1, bias=False)
-        self.bn1 = BatchNorm2d(channels)
+        self.conv1 = Conv2d(in_channels, channels, 3, stride, 1, bias=False,
+                            dtype=dtype)
+        self.bn1 = BatchNorm2d(channels, dtype=dtype)
         self.relu = nn.ReLU()
-        self.conv2 = nn.Conv2d(channels, channels, 3, 1, 1, bias=False)
-        self.bn2 = BatchNorm2d(channels)
+        self.conv2 = Conv2d(channels, channels, 3, 1, 1, bias=False,
+                            dtype=dtype)
+        self.bn2 = BatchNorm2d(channels, dtype=dtype)
         self.downsample = None
         if stride != 1 or in_channels != channels:
             self.downsample = nn.Sequential(
-                nn.Conv2d(in_channels, channels, 1, stride, bias=False),
-                BatchNorm2d(channels))
+                Conv2d(in_channels, channels, 1, stride, bias=False,
+                       dtype=dtype),
+                BatchNorm2d(channels, dtype=dtype))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         y = self.relu(self.bn1(self.conv1(x)))
@@ -44,17 +49,19 @@ class ResNet18Encoder(nn.Module):
 
     stage_features = (64, 128, 256, 512)
 
-    def __init__(self, in_channels: int = 3):
+    def __init__(self, in_channels: int = 3,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
-        self.conv1 = nn.Conv2d(in_channels, 64, 7, 2, 3, bias=False)
-        self.bn1 = BatchNorm2d(64)
+        self.conv1 = Conv2d(in_channels, 64, 7, 2, 3, bias=False, dtype=dtype)
+        self.bn1 = BatchNorm2d(64, dtype=dtype)
         self.relu = nn.ReLU()
         self.maxpool = nn.MaxPool2d(3, 2, 1)
         prev = 64
         for si, f in enumerate(self.stage_features):
             stride = 1 if si == 0 else 2
             self.add_module(f"layer{si + 1}", nn.Sequential(
-                BasicBlock(prev, f, stride), BasicBlock(f, f, 1)))
+                BasicBlock(prev, f, stride, dtype),
+                BasicBlock(f, f, 1, dtype)))
             prev = f
 
     def forward(self, x: torch.Tensor) -> List[torch.Tensor]:

@@ -121,5 +121,7 @@ def load() -> ctypes.CDLL:
         # (x, w1, b1, w2, b2, w3, b3, out, N, H, W, device index, stream)
         lib.tcsfm_decoder_tail_fwd.argtypes = [p] * 8 + [i, i, i, i, p]
         lib.tcsfm_decoder_tail_fwd.restype = i
+        lib.tcsfm_decoder_tail_bf16_fwd.argtypes = [p] * 8 + [i, i, i, i, p]
+        lib.tcsfm_decoder_tail_bf16_fwd.restype = i
         _lib = lib
     return _lib

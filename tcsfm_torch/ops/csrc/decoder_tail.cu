@@ -93,6 +93,7 @@
 // stream on the given device (launch.cuh), allocates nothing, does not
 // synchronise; returns the first error of the setup calls or the launch.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -598,6 +599,234 @@ decoder_tail_kernel(const float* __restrict__ x, const float* __restrict__ w1,
   probe.flush(tid);
 }
 
+
+// ---------------------------------------------------------------------------
+// The bfloat16 tail: what the Pallas kernel computes (_tail_kernel with
+// _tail_forward's casts), for a depth net that computes in bfloat16. x is
+// bf16 [N, 32, H, W]; elu(x) is taken in f32 and rounded to bf16; each of
+// conv1 and conv2 multiplies bf16 operands (the weights rounded to bf16)
+// into f32 accumulators that start at the f32 bias; f1 = elu(conv1) and
+// f2 = elu(conv2) are rounded to bf16 before the next conv reads them;
+// conv3 multiplies f2 by its bf16-rounded weights in f32 FMAs (exact
+// products) plus the f32 bias; out = sigmoid(conv3) in f32.
+//
+// Bound at [18, 32, 192, 640]: the same 51.3 GFLOP as above, 52 us at the
+// H100's 989 TFLOP/s of dense bf16; 142 MB of bf16 x read and 8.8 MB of
+// out written, 45 us at 3.35 TB/s.
+//
+// Design: the f32 kernel's tiling (12x32 tiles, base1/base2's reflected
+// cells, one persistent grid over the tiles), conv1 and conv2 on
+// mma.sync.m16n8k16 bf16 with f32 accumulation (one product a multiply-
+// add; conv1 takes the weights as A and the cells as B, conv2 the cells as
+// A and its weights as B, as above), K = 9 taps x 32 channels in 18
+// k-steps of 16. Activations are stored cell-major, a cell's 32 bf16
+// channels as 16 words (channel pairs) in a 20-word stride: a fragment's 8
+// cells x 4 pairs then fall on 32 banks. x is read with plain loads, two
+// channels a thread, and activated as it is stored; f1 is written over
+// elu(x) and f2 over f1, each behind a barrier (the accumulators are in
+// registers), so that a block needs 81 KB and two blocks share an SM.
+// No cp.async ring: that and wgmma/TMA are later work.
+
+constexpr int kBfWords = 20;                 // words a cell (16 + 4 pad)
+constexpr int kBfKSteps = kTaps * kC1 / 16;  // 18
+constexpr int kBfThreads = 256;
+constexpr int kBfSw1 = 0;                               // uint4 [18][2][32]
+constexpr int kBfSw2 = kBfSw1 + kBfKSteps * 2 * 32 * 4; // uint2 [18][32]
+constexpr int kBfSw3 = kBfSw2 + kBfKSteps * 32 * 2;     // f32 [8 * 9]
+constexpr int kBfSx = (kBfSw3 + kC2 * kTaps + 3) / 4 * 4;
+constexpr int kBfSmemWords = kBfSx + kH0 * kW0 * kBfWords;
+constexpr int kBfSmemBytes = kBfSmemWords * 4;
+static_assert(kCells1 <= kH0 * kW0 && kC2 * kP2 <= kCells1 * kBfWords,
+              "f1 and f2 fit over elu(x)");
+static_assert(kBfSmemBytes * 2 <= 232448, "two blocks an SM");
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+__device__ __forceinline__ float round_bf16(float v) {
+  return __bfloat162float(__float2bfloat16_rn(v));
+}
+
+__device__ __forceinline__ void mma_bf16(float (&d)[4], uint4 a, uint32_t b0,
+                                         uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a.x), "r"(a.y), "r"(a.z), "r"(a.w), "r"(b0), "r"(b1));
+}
+
+// The weights once per block: conv1's [32, 32, 3, 3] as A fragments (k-step
+// s = tap * 2 + half; a lane's rows co g, g + 8 of its M-tile and columns
+// ci 16 half + 2t (+1), + 8), conv2's [8, 32, 3, 3] as B fragments (column
+// co g, rows ci 16 half + 2t (+1), + 8), conv3's [1, 8, 3, 3] rounded.
+__device__ __forceinline__ void stage_bf16_weights(
+    uint32_t* smem, const float* __restrict__ w1,
+    const float* __restrict__ w2, const float* __restrict__ w3, int tid) {
+  uint4* a1 = reinterpret_cast<uint4*>(smem + kBfSw1);
+  for (int i = tid; i < kBfKSteps * 2 * 32; i += kBfThreads) {
+    const int lane = i & 31, mt = (i >> 5) & 1, s = i >> 6;
+    const int co = mt * 16 + (lane >> 2);
+    const int ci = (s & 1) * 16 + 2 * (lane & 3);
+    const float* w = w1 + (co * kC1 + ci) * kTaps + (s >> 1);
+    constexpr int kCo8 = 8 * kC1 * kTaps;
+    a1[i] = make_uint4(
+        pack_bf16(__ldg(w), __ldg(w + kTaps)),
+        pack_bf16(__ldg(w + kCo8), __ldg(w + kCo8 + kTaps)),
+        pack_bf16(__ldg(w + 8 * kTaps), __ldg(w + 9 * kTaps)),
+        pack_bf16(__ldg(w + kCo8 + 8 * kTaps), __ldg(w + kCo8 + 9 * kTaps)));
+  }
+  uint2* b2 = reinterpret_cast<uint2*>(smem + kBfSw2);
+  for (int i = tid; i < kBfKSteps * 32; i += kBfThreads) {
+    const int lane = i & 31, s = i >> 5;
+    const int ci = (s & 1) * 16 + 2 * (lane & 3);
+    const float* w = w2 + ((lane >> 2) * kC1 + ci) * kTaps + (s >> 1);
+    b2[i] = make_uint2(pack_bf16(__ldg(w), __ldg(w + kTaps)),
+                       pack_bf16(__ldg(w + 8 * kTaps), __ldg(w + 9 * kTaps)));
+  }
+  float* w3s = reinterpret_cast<float*>(smem + kBfSw3);
+  for (int i = tid; i < kC2 * kTaps; i += kBfThreads) {
+    w3s[i] = round_bf16(__ldg(w3 + i));
+  }
+}
+
+// elu(x) over the tile's 18x40 region (cells at reflected coordinates, as
+// the f32 kernel's), two channels a thread, as packed bf16 words.
+__device__ __forceinline__ void load_elu_x_bf16(
+    uint32_t* xs, const __nv_bfloat16* __restrict__ x, Tile tl, int H, int W,
+    int tid) {
+  constexpr int kCells0 = kH0 * kW0;
+  const __nv_bfloat16* xn = x + (int64_t)tl.n * kC1 * H * W;
+  const int64_t plane = (int64_t)H * W;
+  for (int i = tid; i < kC1 / 2 * kCells0; i += kBfThreads) {
+    const int pair = i / kCells0;
+    const int cell = i - pair * kCells0;
+    const int r = cell / kW0;
+    const int gr = reflect(tl.r0 - 3 + r, H);
+    const int gc = reflect(tl.c0 - 4 + cell - r * kW0, W);
+    const __nv_bfloat16* p = xn + 2 * pair * plane + (int64_t)gr * W + gc;
+    xs[cell * kBfWords + pair] =
+        pack_bf16(elu(__bfloat162float(p[0])), elu(__bfloat162float(p[plane])));
+  }
+}
+
+__global__ void __launch_bounds__(kBfThreads, 2)
+decoder_tail_bf16_kernel(const __nv_bfloat16* __restrict__ x,
+                         const float* __restrict__ w1,
+                         const float* __restrict__ b1,
+                         const float* __restrict__ w2,
+                         const float* __restrict__ b2,
+                         const float* __restrict__ w3,
+                         const float* __restrict__ b3,
+                         float* __restrict__ out, int H, int W, int tiles_h,
+                         int tiles_w, int tiles) {
+  extern __shared__ uint4 smem_bf[];
+  uint32_t* smem = reinterpret_cast<uint32_t*>(smem_bf);
+  const int tid = threadIdx.x;
+  const int lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const uint4* a1 = reinterpret_cast<const uint4*>(smem + kBfSw1);
+  const uint2* b2s = reinterpret_cast<const uint2*>(smem + kBfSw2);
+  const float* w3s = reinterpret_cast<const float*>(smem + kBfSw3);
+  uint32_t* xs = smem + kBfSx;
+  // f1 (bf16, cell-major like elu(x)) and f2 (f32 planes) over elu(x)
+  __nv_bfloat16* f1 = reinterpret_cast<__nv_bfloat16*>(xs);
+  float* f2 = reinterpret_cast<float*>(xs);
+  stage_bf16_weights(smem, w1, w2, w3, tid);
+  const float bias3 = __ldg(b3);
+
+  for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+    const Tile tl = tile_at(tile, tiles_h, tiles_w);
+    __syncthreads();    // the last tile's conv3 is done with f2
+    load_elu_x_bf16(xs, x, tl, H, W, tid);
+    __syncthreads();
+
+    // conv1: this warp's kNPer1 N-tiles of 8 f1 cells, both M-tiles
+    int base[kNPer1];
+    float acc[kNPer1][2][4];
+#pragma unroll
+    for (int ni = 0; ni < kNPer1; ++ni) {
+      base[ni] = base1((warp * kNPer1 + ni) * 8 + g, tl, H, W);
+#pragma unroll
+      for (int mt = 0; mt < 2; ++mt) {
+        acc[ni][mt][0] = acc[ni][mt][1] = __ldg(b1 + mt * 16 + g);
+        acc[ni][mt][2] = acc[ni][mt][3] = __ldg(b1 + mt * 16 + g + 8);
+      }
+    }
+#pragma unroll 1
+    for (int s = 0; s < kBfKSteps; ++s) {
+      const int tap = s >> 1;
+      const int off = ((tap / 3) * kW0 + tap % 3) * kBfWords + (s & 1) * 8 + t;
+      const uint4 a_lo = a1[(s * 2) * 32 + lane];
+      const uint4 a_hi = a1[(s * 2 + 1) * 32 + lane];
+#pragma unroll
+      for (int ni = 0; ni < kNPer1; ++ni) {
+        const uint32_t* p = xs + base[ni] * kBfWords + off;
+        const uint32_t b0 = p[0], b1v = p[4];
+        mma_bf16(acc[ni][0], a_lo, b0, b1v);
+        mma_bf16(acc[ni][1], a_hi, b0, b1v);
+      }
+    }
+    __syncthreads();    // every warp is done reading elu(x)
+#pragma unroll
+    for (int ni = 0; ni < kNPer1; ++ni) {
+#pragma unroll
+      for (int mt = 0; mt < 2; ++mt) {
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          const int co = mt * 16 + g + 8 * r;
+          const int m = (warp * kNPer1 + ni) * 8 + 2 * t;
+          f1[m * 2 * kBfWords + co] =
+              __float2bfloat16_rn(elu(acc[ni][mt][2 * r]));
+          f1[(m + 1) * 2 * kBfWords + co] =
+              __float2bfloat16_rn(elu(acc[ni][mt][2 * r + 1]));
+        }
+      }
+    }
+    __syncthreads();
+
+    // conv2: this warp's M-tiles of 16 f2 cells, its 8 channels one N-tile
+    const uint32_t* f1w = xs;
+    int cb[kMPer2][2];
+    float acc2[kMPer2][4];
+#pragma unroll
+    for (int mi = 0; mi < kMPer2; ++mi) {
+      const int m = (warp + mi * kWarps) * 16 + g;
+      cb[mi][0] = base2(m, tl, H, W) * kBfWords;
+      cb[mi][1] = base2(m + 8, tl, H, W) * kBfWords;
+      acc2[mi][0] = acc2[mi][2] = __ldg(b2 + 2 * t);
+      acc2[mi][1] = acc2[mi][3] = __ldg(b2 + 2 * t + 1);
+    }
+#pragma unroll 1
+    for (int s = 0; s < kBfKSteps; ++s) {
+      const int tap = s >> 1;
+      const int off = ((tap / 3) * kW1 + tap % 3) * kBfWords + (s & 1) * 8 + t;
+      const uint2 b = b2s[s * 32 + lane];
+#pragma unroll
+      for (int mi = 0; mi < kMPer2; ++mi) {
+        const uint32_t* p0 = f1w + cb[mi][0] + off;
+        const uint32_t* p1 = f1w + cb[mi][1] + off;
+        mma_bf16(acc2[mi], make_uint4(p0[0], p1[0], p0[4], p1[4]), b.x, b.y);
+      }
+    }
+    __syncthreads();    // every warp is done reading f1
+#pragma unroll
+    for (int mi = 0; mi < kMPer2; ++mi) {
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int m = (warp + mi * kWarps) * 16 + g + 8 * r;
+        if (m < kCells2) {
+          f2[2 * t * kP2 + m] = round_bf16(elu(acc2[mi][2 * r]));
+          f2[(2 * t + 1) * kP2 + m] = round_bf16(elu(acc2[mi][2 * r + 1]));
+        }
+      }
+    }
+    __syncthreads();
+    conv3_out(f2, w3s, bias3, out + (int64_t)tl.n * H * W, tl, H, W, tid);
+  }
+}
+
 }  // namespace
 
 // x [N, 32, H, W]; w1 [32, 32, 3, 3], b1 [32]; w2 [8, 32, 3, 3], b2 [8];
@@ -632,6 +861,41 @@ extern "C" int tcsfm_decoder_tail_fwd(const float* x, const float* w1,
                         static_cast<cudaStream_t>(stream)>>>(
       x, w1, b1, w2, b2, w3, b3, out, H, W, tiles_h, tiles_w, (int)tiles,
       aligned);
+  return (int)cudaGetLastError();
+}
+
+// The bfloat16 tail: x bf16 [N, 32, H, W]; the weights and biases f32 (as
+// the f32 entry point's); out f32 [N, H, W, 1]; all contiguous. H, W >= 2.
+extern "C" int tcsfm_decoder_tail_bf16_fwd(const void* x, const float* w1,
+                                           const float* b1, const float* w2,
+                                           const float* b2, const float* w3,
+                                           const float* b3, float* out, int N,
+                                           int H, int W, int device,
+                                           void* stream) {
+  if ((int64_t)N * H * W == 0) return (int)cudaSuccess;
+  DeviceScope scope(device);
+  if (scope.status() != cudaSuccess) return (int)scope.status();
+  cudaError_t err = cudaFuncSetAttribute(
+      decoder_tail_bf16_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      kBfSmemBytes);
+  if (err != cudaSuccess) return (int)err;
+  int sms = 0, per_sm = 0;
+  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  if (err != cudaSuccess) return (int)err;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &per_sm, decoder_tail_bf16_kernel, kBfThreads, kBfSmemBytes);
+  if (err != cudaSuccess) return (int)err;
+  if (per_sm < 1) return (int)cudaErrorInvalidConfiguration;
+  const int tiles_h = (H + kTileH - 1) / kTileH;
+  const int tiles_w = (W + kTileW - 1) / kTileW;
+  const int64_t tiles = (int64_t)N * tiles_h * tiles_w;
+  if (tiles > INT32_MAX) return (int)cudaErrorInvalidValue;
+  const int64_t grid = tiles < (int64_t)sms * per_sm ? tiles
+                                                      : (int64_t)sms * per_sm;
+  decoder_tail_bf16_kernel<<<(unsigned)grid, kBfThreads, kBfSmemBytes,
+                             static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const __nv_bfloat16*>(x), w1, b1, w2, b2, w3, b3, out, H,
+      W, tiles_h, tiles_w, (int)tiles);
   return (int)cudaGetLastError();
 }
 

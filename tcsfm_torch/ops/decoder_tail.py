@@ -7,21 +7,30 @@ conv 32->8 (``feature_conv0``) -> ELU -> 3x3 conv 8->1 (``disp_head0``) ->
 sigmoid, every conv over its own input reflect-padded by one pixel.
 
 ``decoder_tail`` is what the port calls (``models/depth.py::
-make_tail_apply``). On CPU tensors it runs ``decoder_tail_plain`` under
-ordinary autograd. On CUDA tensors it launches the fused kernel of
-``csrc/decoder_tail.cu`` inside an autograd Function (``_DecoderTail``)
-whose backward recomputes through ``decoder_tail_plain``, as the JAX
-package's custom VJP differentiates its XLA reference; there is no backward
-kernel, as there is none in JAX. A failed launch raises.
+make_tail_apply``). On CPU tensors it runs the plain version. On CUDA
+tensors it launches a fused kernel of ``csrc/decoder_tail.cu`` inside an
+autograd Function whose backward recomputes through ``decoder_tail_plain``
+in float32, as the JAX package's custom VJP differentiates its f32 XLA
+reference; there is no backward kernel, as there is none in JAX. A failed
+launch raises.
+
+Two precisions, chosen by ``x``'s dtype:
+* float32 x (a float32 depth net): ``decoder_tail_plain`` and the f32
+  kernel, whose two wide convs run on the tensor cores as f32-accurate
+  3xTF32 products (the design is in the source's header); the disparity
+  is float32.
+* bfloat16 x (a bfloat16 depth net): what the TPU kernel computes
+  (``_tail_forward``: bf16 operands into f32 accumulators, f32 biases,
+  bf16 intermediate maps): ``decoder_tail_plain_bf16`` and the bf16
+  kernel on ``mma.sync`` bf16. The disparity comes out float32, as the
+  Pallas kernel's does; ``make_tail_apply`` casts it to the net's dtype.
+  On the CPU its backward is the same f32 recomputation.
 
 The TPU kernel took the upconv's output in its subpixel phase layout
-``[N, H/2, W/2, 4*32]`` and ran in bf16; the kernel takes the
-full-resolution ``[N, 32, H, W]`` that the port's decoder produces, NCHW
-contiguous on the card, in f32, and runs its two wide convs on the tensor
-cores as f32-accurate 3xTF32 products (the design is in the source's
-header). (On the CPU the decoder's tensors are
-channels_last, which the NHWC images hand down; the plain version takes
-any layout.)
+``[N, H/2, W/2, 4*32]``; the kernels take the full-resolution
+``[N, 32, H, W]`` that the port's decoder produces, NCHW contiguous on the
+card. (On the CPU the decoder's tensors are channels_last, which the NHWC
+images hand down; the plain versions take any layout.)
 """
 
 from __future__ import annotations
@@ -32,7 +41,8 @@ import torch.nn.functional as F
 from tcsfm_torch.ops import _build
 from tcsfm_torch.ops.grid_sample import _raise_on, _stream
 
-LAUNCHES = 0    # kernel launches by the wrapper below, read by chip_smoke.py
+LAUNCHES = 0        # f32 kernel launches by the wrapper below, and
+LAUNCHES_BF16 = 0   # bf16 kernel launches; both read by chip_smoke.py
 
 C1, C2 = 32, 8      # channels of the tail's input and of its feature conv
 MIN_SIZE = 4
@@ -59,15 +69,35 @@ def decoder_tail_plain(x, w1, b1, w2, b2, w3, b3) -> torch.Tensor:
     return torch.sigmoid(_refl_conv(x, w3, b3)).permute(0, 2, 3, 1)
 
 
+def _bf16(t: torch.Tensor) -> torch.Tensor:
+    """``t`` rounded to bfloat16, held as float32."""
+    return t.to(torch.bfloat16).float()
+
+
+def decoder_tail_plain_bf16(x, w1, b1, w2, b2, w3, b3) -> torch.Tensor:
+    """The tail as the Pallas kernel computes it for a bfloat16 net
+    (``_tail_forward``): x, elu(x), the weights, f1 = elu(conv1) and f2 =
+    elu(conv2) rounded to bfloat16 and held as float32 (exactly), the
+    convs in float32 on those operands with float32 biases, the activations
+    in float32. ``decoder_tail_plain``'s arguments; returns the float32
+    disparity [N, H, W, 1]."""
+    x = _bf16(F.elu(_bf16(x)))
+    x = _bf16(F.elu(_refl_conv(x, _bf16(w1), b1.float())))
+    x = _bf16(F.elu(_refl_conv(x, _bf16(w2), b2.float())))
+    return torch.sigmoid(_refl_conv(x, _bf16(w3), b3.float())
+                         ).permute(0, 2, 3, 1)
+
+
 _WEIGHT_SHAPES = ((C1, C1, 3, 3), (C1,), (C2, C1, 3, 3), (C2,), (1, C2, 3, 3),
                   (1,))
 
 
 def _check(x: torch.Tensor, weights) -> None:
     tensors = (x, *weights)
-    if any(t.dtype != torch.float32 for t in tensors):
-        raise TypeError(f"decoder_tail takes float32, got "
-                        f"{[t.dtype for t in tensors]}")
+    if (x.dtype not in (torch.float32, torch.bfloat16)
+            or any(t.dtype != torch.float32 for t in weights)):
+        raise TypeError(f"decoder_tail takes x float32 or bfloat16 and "
+                        f"float32 weights, got {[t.dtype for t in tensors]}")
     if x.dim() != 4 or x.shape[1] != C1:
         raise ValueError(f"decoder_tail takes x [N, {C1}, H, W], got "
                          f"{tuple(x.shape)}")
@@ -90,48 +120,62 @@ def _check(x: torch.Tensor, weights) -> None:
 
 
 def _launch(x, w1, b1, w2, b2, w3, b3) -> torch.Tensor:
-    global LAUNCHES
+    global LAUNCHES, LAUNCHES_BF16
     n, _, h, w = x.shape
-    out = x.new_empty(n, h, w, 1)
-    _raise_on(_build.load().tcsfm_decoder_tail_fwd(
-        x.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(),
-        b2.data_ptr(), w3.data_ptr(), b3.data_ptr(), out.data_ptr(), n, h, w,
-        x.device.index, _stream(x.device)), "decoder_tail")
-    LAUNCHES += 1
+    out = x.new_empty((n, h, w, 1), dtype=torch.float32)
+    bf16 = x.dtype == torch.bfloat16
+    lib = _build.load()
+    fn = lib.tcsfm_decoder_tail_bf16_fwd if bf16 else lib.tcsfm_decoder_tail_fwd
+    _raise_on(fn(x.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(),
+                 b2.data_ptr(), w3.data_ptr(), b3.data_ptr(), out.data_ptr(),
+                 n, h, w, x.device.index, _stream(x.device)),
+              "decoder_tail_bf16" if bf16 else "decoder_tail")
+    if bf16:
+        LAUNCHES_BF16 += 1
+    else:
+        LAUNCHES += 1
     return out
 
 
 class _DecoderTail(torch.autograd.Function):
-    """The fused kernel; as its backward, autodiff of
-    ``decoder_tail_plain`` recomputed from the saved inputs (JAX's
-    ``_tail_bwd``)."""
+    """A fused kernel (or, for bf16 x on the CPU, its plain version); as its
+    backward, autodiff of ``decoder_tail_plain`` in float32 recomputed
+    from the saved inputs (JAX's ``_tail_bwd``), the gradient of x in x's
+    dtype."""
 
     @staticmethod
     def forward(ctx, *inputs):
         ctx.save_for_backward(*inputs)
+        x = inputs[0]
+        if x.dtype == torch.bfloat16 and x.device.type == "cpu":
+            return decoder_tail_plain_bf16(*inputs)
         return _launch(*inputs)
 
     @staticmethod
     def backward(ctx, g):
         need = ctx.needs_input_grad
         with torch.enable_grad():
-            inputs = [t.detach().requires_grad_(k)
+            inputs = [t.detach().float().requires_grad_(k)
                       for t, k in zip(ctx.saved_tensors, need)]
             out = decoder_tail_plain(*inputs)
             wanted = [t for t in inputs if t.requires_grad]
             grads = iter(torch.autograd.grad(out, wanted, g))
-        return tuple(next(grads) if k else None for k in need)
+        return tuple(next(grads).to(t.dtype) if k else None
+                     for t, k in zip(ctx.saved_tensors, need))
 
 
 def decoder_tail(x, w1, b1, w2, b2, w3, b3) -> torch.Tensor:
-    """``decoder_tail_plain``'s contract; differentiable.
+    """The tail, differentiable; returns the float32 disparity
+    [N, H, W, 1].
 
-    CPU tensors, in any layout, go to ``decoder_tail_plain``. CUDA tensors,
-    contiguous, launch the fused kernel on the current stream and raise if
-    the launch fails.
+    float32 x on the CPU, in any layout, goes to ``decoder_tail_plain``
+    under ordinary autograd; bfloat16 x on the CPU to
+    ``decoder_tail_plain_bf16``. CUDA tensors, contiguous, launch the
+    kernel of x's dtype on the current stream and raise if the launch
+    fails.
     """
     weights = (w1, b1, w2, b2, w3, b3)
     _check(x, weights)
-    if x.device.type == "cpu":
+    if x.device.type == "cpu" and x.dtype == torch.float32:
         return decoder_tail_plain(x, *weights)
     return _DecoderTail.apply(x, *weights)

@@ -2,10 +2,12 @@
 the VO loop's time goes on the card.
 
     python -m tcsfm_torch.profile_forward [--iters 5] [--tf32]
+        [--compute_dtype float32|bfloat16]
         [--tail | --train | --refiners | --pft | --vo]
 
-Runs the main path (med res 192x640, B=6, S=2, 4 iterations, f32, seeded
-random weights) and prints: the forward's median wall time, the device
+Runs the main path (med res 192x640, B=6, S=2, 4 iterations, seeded
+random weights, the networks in ``--compute_dtype``, float32 by default)
+and prints: the forward's median wall time, the device
 time of each layer (the depth net split into its full-resolution tail --
 iconv4, the feature conv and the head, on 18 images at 192x640 -- and the
 rest of it, the pose net, the sampler kernel, the rest) from CUDA events,
@@ -133,7 +135,7 @@ def _top_kernels(run, iters: int, what: str) -> None:
 
 def train_split(args) -> None:
     """The training step's device time, whole and by piece."""
-    cfg = Config(iterations=4, minibatch=6)
+    cfg = Config(iterations=4, minibatch=6, compute_dtype=args.compute_dtype)
     h, w = cfg.image_size
     b, s = cfg.minibatch, cfg.num_source_imgs
     n = 2 * s * b
@@ -173,8 +175,8 @@ def train_split(args) -> None:
         for _ in range(cfg.iterations - 1):
             grid_sample_bwd(img3, coords, g3)
 
-    disps = [[(0.05 + 0.1 * rand(b, h, w, 1)).requires_grad_(True)]
-             for _ in range(s + 1)]
+    disps = [[(0.05 + 0.1 * rand(b, h, w, 1)).to(cfg.dtype)
+              .requires_grad_(True)] for _ in range(s + 1)]
     poses = (0.01 * rand(s, b, 6)).requires_grad_(True)
 
     def loss():
@@ -186,7 +188,8 @@ def train_split(args) -> None:
              "loss fwd+bwd (1 fwd, 1 d_img bwd)": loss,
              "optimizer": state.optimizer.step}
     times = {k: _median_event_ms(fn, args.iters) for k, fn in parts.items()}
-    print(f"{torch.cuda.get_device_name(0)}; TF32 convs {args.tf32}; train "
+    print(f"{torch.cuda.get_device_name(0)}; {cfg.compute_dtype} networks; "
+          f"TF32 convs {args.tf32}; train "
           f"step {h}x{w} B={b} S={s} iters={cfg.iterations}: median device "
           f"{step_ms:.3f} ms over {args.iters} -> {b / step_ms * 1e3:.2f} "
           f"frames/s")
@@ -377,7 +380,7 @@ def vo_split(args) -> None:
     from tcsfm_torch.utils.helpers import to_device
 
     frames, batch = 65, 8
-    cfg = Config(iterations=4)
+    cfg = Config(iterations=4, compute_dtype=args.compute_dtype)
     drive = SequenceData.from_npz(
         ".flagship_data/drive1504_192x640/synthetic/sequence_data.npz")
     seq = SequenceData(name="cut", intrinsics=drive.intrinsics[:frames],
@@ -432,6 +435,9 @@ def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--iters", type=int, default=5)
     ap.add_argument("--tf32", action="store_true")
+    ap.add_argument("--compute_dtype", default="float32",
+                    choices=["float32", "bfloat16"],
+                    help="the networks' compute dtype")
     ap.add_argument("--tail", action="store_true",
                     help="the depth net through the fused decoder tail")
     ap.add_argument("--train", action="store_true",
@@ -460,7 +466,7 @@ def main(argv=None) -> None:
         vo_split(args)
         return
 
-    cfg = Config(iterations=4, minibatch=6)
+    cfg = Config(iterations=4, minibatch=6, compute_dtype=args.compute_dtype)
     h, w = cfg.image_size
     b, s = cfg.minibatch, cfg.num_source_imgs
     depth_net, pose_net = build_models(cfg)
@@ -525,8 +531,8 @@ def main(argv=None) -> None:
         torch.cuda.synchronize()
         times.append(time.perf_counter() - t)
     med = statistics.median(times)
-    print(f"{torch.cuda.get_device_name(0)}; TF32 convs {args.tf32}; depth "
-          f"net tail {'fused kernel' if args.tail else 'cuDNN layers'}; "
+    print(f"{torch.cuda.get_device_name(0)}; {cfg.compute_dtype} networks; "
+          f"TF32 convs {args.tf32}; depth net tail {'fused kernel' if args.tail else 'cuDNN layers'}; "
           f"forward median {med * 1e3:.3f} ms over {len(times)} -> "
           f"{b / med:.2f} frames/s")
 

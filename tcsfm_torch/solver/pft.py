@@ -124,10 +124,13 @@ def compute_optimization_loss(
 def resize_bilinear(x: torch.Tensor, h: int, w: int) -> torch.Tensor:
     """``jax.image.resize(x, (n, h, w, c), "bilinear")`` of NHWC ``x``:
     half-pixel centres with a triangle kernel widened by the downsampling
-    factor (PyTorch's ``antialias=True``; upsampling is plain bilinear)."""
-    y = F.interpolate(x.permute(0, 3, 1, 2), size=(h, w), mode="bilinear",
+    factor (PyTorch's ``antialias=True``; upsampling is plain bilinear).
+    A bfloat16 ``x`` (a bfloat16 net's disparity) is resized in float32
+    and rounded back: the CPU has no bfloat16 antialiased resize."""
+    xf = x.float() if x.dtype == torch.bfloat16 else x
+    y = F.interpolate(xf.permute(0, 3, 1, 2), size=(h, w), mode="bilinear",
                       align_corners=False, antialias=True)
-    return y.permute(0, 2, 3, 1)
+    return y.permute(0, 2, 3, 1).to(x.dtype)
 
 
 # --------------------------------------------------------------------------

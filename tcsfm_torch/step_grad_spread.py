@@ -43,7 +43,7 @@ def settings(cs):
     state, batch = cs.card_test_setting(torch, create_train_state)
     yield "card test 96x160 B=2, depth terms on", state, batch
     cfg = Config(iterations=cs.ITERS, num_scales=1, minibatch=cs.B,
-                 img_resolution="med")
+                 img_resolution="med", compute_dtype="float32")
     state, batch = cs.train_setting(torch, cfg, create_train_state)
     for _ in range(cs.TRAIN_WARMUP + cs.TRAIN_TIMED):
         train_step(state, batch)

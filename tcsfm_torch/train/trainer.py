@@ -1,7 +1,10 @@
 """Self-supervised training (counterpart of ``tcsfm/train/trainer.py``).
 
 One training step: the depth net over target + sources (BatchNorm in train
-mode unless the depth net is frozen) → ``disp_to_depth`` → the coupled
+mode unless the depth net is frozen; both nets compute in
+``cfg.compute_dtype`` on float32 parameters, so the gradients and Adam's
+state are float32 in either dtype, as under the JAX package's
+``compute_dtype``) → ``disp_to_depth`` → the coupled
 pose solver, differentiated through its 3 pose-only warps (each iteration
 recomputed in the backward with ``cfg.remat_coupled``, the default, as in
 JAX: 2 more value launches a step) → the loss stack
@@ -133,13 +136,17 @@ def _to_device(batch, device: torch.device) -> Dict[str, torch.Tensor]:
 
 
 def _global_moments(x: torch.Tensor, mesh: Optional[Mesh]):
-    """Mean and biased standard deviation of ``x`` over the global batch."""
+    """Mean and biased standard deviation of ``x`` over the global batch,
+    in ``x``'s dtype; a bfloat16 ``x``'s reduced in float32, as
+    ``jnp.mean`` and ``jnp.std`` reduce it."""
     if mesh is None or mesh.world_size == 1:
         return x.mean(), x.std(correction=0)      # jnp.std is biased
-    sums = mesh.all_reduce(torch.stack([x.sum(), x.new_full((), x.numel())]))
+    xf = x.float()
+    sums = mesh.all_reduce(torch.stack([xf.sum(),
+                                        xf.new_full((), x.numel())]))
     mean = sums[0] / sums[1]
-    sq = mesh.all_reduce((x - mean).square().sum())
-    return mean, torch.sqrt(sq / sums[1])
+    sq = mesh.all_reduce((xf - mean).square().sum())
+    return mean.to(x.dtype), torch.sqrt(sq / sums[1]).to(x.dtype)
 
 
 def forward_loss(cfg: Config, depth_net: DepthNet, pose_net: PoseNet,

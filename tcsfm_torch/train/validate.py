@@ -33,7 +33,8 @@ from tcsfm_torch.ops.flow import pose_flows
 from tcsfm_torch.ops.grid_sample import grid_sample
 from tcsfm_torch.solver.coupled import (solve_disp, solve_pose,
                                         solve_pose_iteratively)
-from tcsfm_torch.utils.helpers import depth_to_disp, disp_to_depth, to_device
+from tcsfm_torch.utils.helpers import (depth_to_disp, disp_to_depth,
+                                       to_device, to_numpy)
 
 
 def _device_of(net: torch.nn.Module) -> torch.device:
@@ -98,7 +99,7 @@ def depth_and_reconstruction_panels(cfg: Config, depth_net: DepthNet,
                                        cfg.max_depth).clamp(0, 1))
 
     def stack(xs):
-        return torch.stack(xs).cpu().numpy()
+        return to_numpy(torch.stack(xs))
 
     return {"triplets": stack(triplets), "disparities": stack(disps),
             "exp_masks": stack(masks), "depth_masks": stack(d_masks),
@@ -125,7 +126,7 @@ def trajectory_eval(cfg: Config, depth_net: DepthNet, pose_net: PoseNet,
                                       x["intrinsics"])
         est.append(poses[0])
         gts.append(batch["gt_lie_alg"][0])
-    est_scaled = torch.cat(est).cpu().numpy()
+    est_scaled = to_numpy(torch.cat(est))
     est_scaled[:, 0:3] *= METRIC_SCALE
     gts = np.concatenate(gts)
     _, _, errors, _ = compute_trajectory(

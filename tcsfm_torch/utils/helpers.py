@@ -1,6 +1,13 @@
 """Disparity/depth conversion and the flip-merge post-processing
 (counterpart of ``tcsfm/utils/helpers.py``), and the device rule of the
-port's entry points."""
+port's entry points.
+
+``disp_to_depth`` keeps a bfloat16 disparity (a bfloat16 net's) in
+bfloat16, as JAX does: its Python-float constants are weakly typed in
+both frameworks, so the depth reaches the geometry bfloat16-rounded
+(``tcsfm/utils/helpers.py:12-20``). JAX rounds such a constant to
+bfloat16 before it multiplies (16.29 becomes 16.25), torch would not:
+``weak`` rounds it as JAX does."""
 
 from __future__ import annotations
 
@@ -10,6 +17,16 @@ import numpy as np
 import torch
 
 
+def weak(c: float, like: torch.Tensor) -> float:
+    """The Python scalar ``c`` as JAX's weak typing applies it to ``like``:
+    rounded to bfloat16 first where ``like`` is bfloat16 (a torch op would
+    apply it unrounded, in float32, and round only its result), unchanged
+    otherwise."""
+    if like.dtype == torch.bfloat16:
+        return float(torch.tensor(c, dtype=torch.bfloat16))
+    return c
+
+
 def disp_to_depth(disp: torch.Tensor, min_depth: float, max_depth: float):
     """Sigmoid disparity → (scaled_disp, depth).
 
@@ -17,7 +34,8 @@ def disp_to_depth(disp: torch.Tensor, min_depth: float, max_depth: float):
     """
     min_disp = 1.0 / max_depth
     max_disp = 1.0 / min_depth
-    scaled_disp = min_disp + (max_disp - min_disp) * disp
+    scaled_disp = (weak(min_disp, disp)
+                   + weak(max_disp - min_disp, disp) * disp)
     return scaled_disp, 1.0 / scaled_disp
 
 
@@ -25,7 +43,8 @@ def depth_to_disp(depth: torch.Tensor, min_depth: float, max_depth: float):
     """Inverse of ``disp_to_depth``."""
     min_disp = 1.0 / max_depth
     max_disp = 1.0 / min_depth
-    return (1.0 / depth - min_disp) / (max_disp - min_disp)
+    return ((1.0 / depth - weak(min_disp, depth))
+            / weak(max_disp - min_disp, depth))
 
 
 def post_process_disparity(l_disp: torch.Tensor,
@@ -37,11 +56,22 @@ def post_process_disparity(l_disp: torch.Tensor,
     """
     w = l_disp.shape[-1]
     m_disp = 0.5 * (l_disp + r_disp)
-    ramp = torch.linspace(0.0, 1.0, w, dtype=l_disp.dtype,
-                          device=l_disp.device)[None, None, :]
+    # jnp.linspace's float32 (float64 under x64): a bfloat16 disparity's
+    # blend promotes to float32, as JAX's does
+    ramp = torch.linspace(0.0, 1.0, w, device=l_disp.device,
+                          dtype=torch.promote_types(l_disp.dtype,
+                                                    torch.float32)
+                          )[None, None, :]
     l_mask = 1.0 - (20.0 * (ramp - 0.05)).clamp(0.0, 1.0)
     r_mask = l_mask.flip(-1)
     return r_mask * l_disp + l_mask * r_disp + (1.0 - l_mask - r_mask) * m_disp
+
+
+def to_numpy(t: torch.Tensor) -> np.ndarray:
+    """``t`` on the host as a numpy array; a bfloat16 tensor (numpy has no
+    bfloat16) as float32, which holds its values exactly."""
+    t = t.detach().cpu()
+    return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
 
 
 def resolve_device(device=None) -> torch.device:

@@ -159,7 +159,8 @@ def jax_state():
 
 
 def port_nets(seed):
-    return build_models(Config(iterations=2), device="cpu",
+    return build_models(Config(compute_dtype="float32",
+                               iterations=2), device="cpu",
                         generator=torch.Generator().manual_seed(seed))
 
 
@@ -174,7 +175,8 @@ def test_port_round_trip_and_best_fallback(nets, tmp_path, capsys):
     nets, other = nets
     d = str(tmp_path / "run")
     ckpt.save_checkpoint(d, nets, epoch=4, best_val_loss=0.25,
-                         cfg=Config(iterations=2), is_best=True)
+                         cfg=Config(compute_dtype="float32",
+                                    iterations=2), is_best=True)
     assert sorted(os.listdir(d)) == ["best_model", "checkpoint.msgpack",
                                      "config.json"]
     with open(os.path.join(d, "checkpoint.msgpack"), "rb") as f:
@@ -199,12 +201,14 @@ def test_port_round_trip_and_best_fallback(nets, tmp_path, capsys):
     # nets is saved without one
     with pytest.raises(ValueError, match="TrainState"):
         ckpt.load_checkpoint(d, other, load_best=False)
-    state = create_train_state(Config(iterations=2), device="cpu")
+    state = create_train_state(Config(compute_dtype="float32",
+                                      iterations=2), device="cpu")
     with pytest.raises(ValueError, match="holds no opt_state"):
         ckpt.load_checkpoint(d, state, load_best=False)
 
     # a TrainState's file resumes: weights, optimizer state, step, epoch
-    saved = create_train_state(Config(iterations=2), device="cpu",
+    saved = create_train_state(Config(compute_dtype="float32",
+                                      iterations=2), device="cpu",
                                generator=torch.Generator().manual_seed(2))
     for p in saved.depth_net.parameters():
         p.grad = torch.full_like(p, 1e-3)
@@ -227,7 +231,8 @@ def test_port_round_trip_and_best_fallback(nets, tmp_path, capsys):
 def test_train_state_and_mismatched_tree(nets, tmp_path):
     """A ``TrainState`` saves and loads like the tuple of nets; a tree of
     other keys is refused, as Flax's ``from_state_dict`` refuses it."""
-    state = create_train_state(Config(iterations=2), device="cpu")
+    state = create_train_state(Config(compute_dtype="float32",
+                                      iterations=2), device="cpu")
     state.step = 5
     d = str(tmp_path / "ts")
     ckpt.save_checkpoint(d, state, epoch=2, best_val_loss=0.5,
@@ -252,7 +257,8 @@ def test_jax_reads_a_port_checkpoint(nets, tmp_path, jax_state):
     nets = nets[0]
     d = str(tmp_path / "port")
     ckpt.save_checkpoint(d, nets, epoch=3, best_val_loss=0.5,
-                         cfg=Config(iterations=2), is_best=True)
+                         cfg=Config(compute_dtype="float32",
+                                    iterations=2), is_best=True)
     loaded, epoch, best = jax_ckpt.load_checkpoint(d, state, load_best=True)
     assert (epoch, best) == (1, 1e5)
     params, stats = to_flax(nets[0].state_dict(), nets[1].state_dict())
@@ -275,34 +281,38 @@ def test_port_reads_a_jax_checkpoint(nets, tmp_path, jax_state):
     assert_nets_equal(nets, *from_flax(
         tree, jax.tree_util.tree_map(np.asarray,
                                      unfreeze(state.batch_stats))))
-    cfg = load_config(d, Config())
+    cfg = load_config(d, Config(compute_dtype="float32"))
     assert (cfg.iterations, cfg.img_resolution) == (2, "low")
 
 
 def test_config_crosses_with_its_compute_dtype(tmp_path, capsys):
-    cfg = Config(iterations=3, lr=3e-5, min_depth=0.1, camera_height=1.65,
-                 l_depth_consist=True, img_resolution="low")
+    """The port writes the dtype it computes in, and reads the one a JAX
+    file asks for, both ways, in both dtypes."""
     path = str(tmp_path / "config.json")
-    cfg.save(path)
-    jcfg = JaxConfig.load(path)
-    assert jcfg.compute_dtype == "float32"
-    for f in cfg.__dataclass_fields__:
-        assert getattr(jcfg, f) == getattr(cfg, f), f
-    assert Config.load(path) == cfg
+    for dtype in ("float32", "bfloat16"):
+        cfg = Config(compute_dtype=dtype,
+                     iterations=3, lr=3e-5, min_depth=0.1, camera_height=1.65,
+                     l_depth_consist=True, img_resolution="low")
+        cfg.save(path)
+        jcfg = JaxConfig.load(path)
+        assert jcfg.compute_dtype == dtype
+        for f in cfg.__dataclass_fields__:
+            assert getattr(jcfg, f) == getattr(cfg, f), f
+        assert Config.load(path) == cfg
 
-    # a JAX config asking bfloat16 (cli/train.py's default) loads, and the
-    # CLIs name both dtypes and the keys the port does not read
-    JaxConfig(iterations=3).save(path)
-    with open(path) as f:
-        assert json.load(f)["compute_dtype"] == "bfloat16"
-    capsys.readouterr()
-    assert load_config(str(tmp_path), Config()).iterations == 3
-    out = capsys.readouterr().out.splitlines()
-    assert out[0] == ("compute dtype: the config asks bfloat16, the port "
-                      "computes in float32 (TF32 off)")
-    assert out[1].startswith("config keys the port does not read: ")
-    assert "use_mxu_warp" in out[1]
-    # the training CLI's data, remat, mesh and checkpoint fields are read
-    for key in ("train_seq", "remat_coupled", "mesh_shape", "mesh_axes",
-                "ckpt_dir", "pretrained_dir"):
-        assert key not in out[1]
+        # a JAX config (bfloat16 is cli/train.py's default) loads in its
+        # dtype, and the CLIs name the keys the port does not read
+        JaxConfig(iterations=3, compute_dtype=dtype).save(path)
+        with open(path) as f:
+            assert json.load(f)["compute_dtype"] == dtype
+        capsys.readouterr()
+        loaded = load_config(str(tmp_path), Config(compute_dtype="float32"))
+        assert (loaded.iterations, loaded.compute_dtype) == (3, dtype)
+        out = capsys.readouterr().out.splitlines()
+        assert len(out) == 1
+        assert out[0].startswith("config keys the port does not read: ")
+        assert "use_mxu_warp" in out[0] and "compute_dtype" not in out[0]
+        # the training CLI's data, remat, mesh and checkpoint fields are read
+        for key in ("train_seq", "remat_coupled", "mesh_shape", "mesh_axes",
+                    "ckpt_dir", "pretrained_dir"):
+            assert key not in out[0]

@@ -87,7 +87,7 @@ def models():
         jcfg, jax.random.PRNGKey(0), steps_per_epoch=10)
     params = jax.tree_util.tree_map(np.asarray, unfreeze(state.params))
     stats = jax.tree_util.tree_map(np.asarray, unfreeze(state.batch_stats))
-    cfg = Config(iterations=ITERS)
+    cfg = Config(compute_dtype="float32", iterations=ITERS)
 
     def jax_slice(depth_params, pose_params, tgt, src, K):
         disps = jax_solve_disp(lambda x: depth_model.apply(
@@ -240,7 +240,7 @@ def test_solve_disp_packing():
 
 def test_entry_points_need_a_card_unless_cpu(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
-    cfg = Config(iterations=2)
+    cfg = Config(compute_dtype="float32", iterations=2)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         infer.build_models(cfg)
     depth_net, pose_net = infer.build_models(cfg, device="cpu")
@@ -254,7 +254,7 @@ def test_entry_points_need_a_card_unless_cpu(monkeypatch):
 
 
 def test_build_models_is_seeded():
-    cfg = Config()
+    cfg = Config(compute_dtype="float32")
     a = infer.build_models(cfg, device="cpu",
                            generator=torch.Generator().manual_seed(5))
     b = infer.build_models(cfg, device="cpu",
@@ -276,7 +276,8 @@ def test_depth_net_init_is_flax_truncated_normal():
     from tcsfm.models.layers import kaiming_out
 
     depth_net, _ = infer.build_models(
-        Config(), device="cpu", generator=torch.Generator().manual_seed(0))
+        Config(compute_dtype="float32"), device="cpu",
+        generator=torch.Generator().manual_seed(0))
     convs = [m.weight for m in depth_net.modules()
              if isinstance(m, torch.nn.Conv2d)]
     assert len(convs) > 20

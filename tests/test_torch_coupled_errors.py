@@ -85,7 +85,8 @@ def _net_depths(tgt, src):
     """Depths from the port's depth net, seeded, with trained-like
     conditioning applied to its decoder."""
     depth_net, _ = infer.build_models(
-        Config(), device="cpu", generator=torch.Generator().manual_seed(3))
+        Config(compute_dtype="float32"), device="cpu",
+        generator=torch.Generator().manual_seed(3))
     chip_smoke.condition_like_trained(depth_net, torch)
     with torch.no_grad():
         imgs = torch.cat([torch.from_numpy(tgt),

@@ -16,7 +16,9 @@ vs the plain sampler: poses 1e-5, costs 1e-6 relative (the jvps' products
 run in another order); the
 decoder tail kernel vs its plain version (cuDNN convolutions, TF32 off)
 atol 1e-5 on the sigmoid output (the sums run in another order), its
-gradient (the plain version's autodiff either way) 1e-6 of the largest.
+gradient (the plain version's autodiff either way) 1e-6 of the largest;
+the bf16 tail kernel vs ``decoder_tail_plain_bf16`` within
+``chip_smoke.TAIL_BF16_TOL`` (bf16 rounding flips).
 The evaluation CLIs: scaled disparities within 1e-5 (the plain sampler's
 run) and 1e-4 (the CPU's) of their range, 1/min_depth - 1/max_depth;
 ScanNet's fused pose vectors within 1e-5 and 1e-4; the warm-start gate's
@@ -85,7 +87,8 @@ def main_path_warps():
         pytest.skip("needs an NVIDIA card")
     import chip_smoke
 
-    cfg = Config(iterations=chip_smoke.ITERS, num_scales=1,
+    cfg = Config(compute_dtype="float32",
+                 iterations=chip_smoke.ITERS, num_scales=1,
                  minibatch=chip_smoke.B, img_resolution="med")
     return chip_smoke.main_path_warps(torch, gs, cfg, build_models,
                                       coupled_forward)
@@ -130,7 +133,8 @@ def train_step_bwd_samples():
         pytest.skip("needs an NVIDIA card")
     import chip_smoke
 
-    cfg = Config(iterations=chip_smoke.ITERS, num_scales=1,
+    cfg = Config(compute_dtype="float32",
+                 iterations=chip_smoke.ITERS, num_scales=1,
                  minibatch=chip_smoke.B, img_resolution="med")
     return chip_smoke.train_step_bwd_samples(torch, gs, cfg,
                                              create_train_state, train_step)
@@ -354,7 +358,7 @@ def test_step_grad_check_fails_on_a_planted_fault(cuda):
 def test_coupled_forward_on_card(cuda):
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
-    cfg = Config(iterations=4)
+    cfg = Config(compute_dtype="float32", iterations=4)
     depth_net, pose_net = build_models(cfg,
                                        generator=torch.Generator().manual_seed(0))
     rng = np.random.RandomState(2)
@@ -502,7 +506,7 @@ def test_make_tail_apply_on_card(cuda):
     import chip_smoke
 
     torch.backends.cudnn.allow_tf32 = False
-    depth_net, _ = build_models(Config(),
+    depth_net, _ = build_models(Config(compute_dtype="float32"),
                                 generator=torch.Generator().manual_seed(3))
     chip_smoke.condition_like_trained(depth_net, torch)
     imgs = torch.from_numpy(np.random.RandomState(4).rand(
@@ -515,6 +519,57 @@ def test_make_tail_apply_on_card(cuda):
     assert dt.LAUNCHES == before + 1
     assert tail.shape == plain.shape == (3, 64, 96, 1)
     assert (tail - plain).abs().max().item() <= 1e-5
+
+
+@pytest.mark.parametrize("shape", [(1, 32, 5, 7), (2, 32, 37, 50),
+                                   (2, 32, 19, 38), (1, 32, 4, 4),
+                                   (7, 32, 100, 200)])
+def test_decoder_tail_bf16_kernel_matches_plain(cuda, shape):
+    """The bf16 tail kernel against ``decoder_tail_plain_bf16`` at the f32
+    kernel's border cases, on the f32 disparity: within
+    ``chip_smoke.TAIL_BF16_TOL`` (bf16 rounding flips of elu(x), f1 and f2
+    under another f32 summation order); one bf16 launch, no f32 one."""
+    import chip_smoke
+
+    x, ws = _tail_inputs(shape, 13, cuda)
+    x = x.to(torch.bfloat16)
+    before = (dt.LAUNCHES, dt.LAUNCHES_BF16)
+    out = dt.decoder_tail(x, *ws)
+    torch.cuda.synchronize()
+    assert (dt.LAUNCHES, dt.LAUNCHES_BF16) == (before[0], before[1] + 1)
+    ref = dt.decoder_tail_plain_bf16(x, *ws)
+    n, _, h, w = shape
+    assert out.dtype == torch.float32 and out.shape == (n, h, w, 1)
+    assert (out - ref).abs().max().item() <= chip_smoke.TAIL_BF16_TOL
+
+
+def test_bf16_nets_on_card(cuda):
+    """``compute_dtype="bfloat16"``'s forward through both routes and a
+    training step at 64x96: bf16 disparities, f32 poses, finite losses,
+    float32 parameters and gradients, one bf16 tail launch on the tail
+    route."""
+    import chip_smoke
+
+    cfg = Config(iterations=2, compute_dtype="bfloat16")
+    depth_net, pose_net = build_models(
+        cfg, generator=torch.Generator().manual_seed(3))
+    chip_smoke.condition_like_trained(depth_net, torch)
+    inputs = chip_smoke.smooth_inputs(torch, 2, 2, 64, 96, seed=2)
+    before = dt.LAUNCHES_BF16
+    for apply in (None, make_tail_apply(depth_net)):
+        _, _, disp, chain = coupled_forward(depth_net, pose_net, *inputs,
+                                            cfg, depth_apply=apply)
+        assert disp.dtype == torch.bfloat16 and chain.dtype == torch.float32
+        assert torch.isfinite(disp).all() and torch.isfinite(chain).all()
+    assert dt.LAUNCHES_BF16 == before + 1
+    state = create_train_state(cfg, generator=torch.Generator().manual_seed(0))
+    chip_smoke.condition_like_trained(state.depth_net, torch)
+    losses = train_step(state, chip_smoke.train_batch(
+        torch, 2, 2, 96, 160, seed=5, device="cuda"))
+    assert all(torch.isfinite(v) for v in losses.values())
+    for p in list(state.depth_net.parameters()) + list(
+            state.pose_net.parameters()):
+        assert p.dtype == p.grad.dtype == torch.float32
 
 
 @pytest.mark.parametrize("mode", ["encoder", "pose"])
@@ -536,7 +591,7 @@ def test_pft_on_card(cuda, mode):
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     epochs, iters = 4, chip_smoke.ITERS
-    cfg = Config(iterations=iters)
+    cfg = Config(compute_dtype="float32", iterations=iters)
     depth_net, pose_net = build_models(
         cfg, generator=torch.Generator().manual_seed(5))
     chip_smoke.condition_like_trained(depth_net, torch)
@@ -581,7 +636,7 @@ def _card_model_dir(tmp_path, seed):
     import chip_smoke
     from tcsfm_torch.train.checkpoint import save_checkpoint
 
-    cfg = Config(iterations=chip_smoke.ITERS)
+    cfg = Config(compute_dtype="float32", iterations=chip_smoke.ITERS)
     nets = build_models(cfg, device="cpu",
                         generator=torch.Generator().manual_seed(seed))
     chip_smoke.condition_like_trained(nets[0], torch)
@@ -711,7 +766,7 @@ def test_evaluate_depth_eigen_on_card(cuda, tmp_path):
              data + "/gt_depths.npz", "--save_pred_disps", npy, "--device",
              device]), np.load(npy))
         assert chip_smoke.read_counts(gs) == (0, 0, 0)
-    cfg = Config()
+    cfg = Config(compute_dtype="float32")
     span = 1.0 / cfg.min_depth - 1.0 / cfg.max_depth
     err = np.abs(out["cuda"][1] - out["cpu"][1]).max() / span
     print(f"Eigen card vs CPU: scaled disparity {err:.3e} of its range")
@@ -746,7 +801,7 @@ def test_evaluate_scannet_on_card(cuda, tmp_path):
             args, *load_nets(model_dir, device), device, sampler=sampler)
         if name == "kernel":
             assert chip_smoke.read_counts(gs) == (4 * 7, 0, 0)
-    cfg = Config()
+    cfg = Config(compute_dtype="float32")
     span = 1.0 / cfg.min_depth - 1.0 / cfg.max_depth
     for ref, tol in (("plain", 1e-5), ("cpu", 1e-4)):
         disp, pose = chip_smoke.scannet_gap(runs["kernel"], runs[ref])
@@ -760,9 +815,9 @@ def test_evaluate_scannet_on_card(cuda, tmp_path):
 def test_golden_warm_start_gate_on_card(cuda, tmp_path):
     """``golden_eval --warm_start_gate`` at the CLI's defaults: phase A
     (``--synthetic --device cpu`` in a subprocess, 5 epochs at 64x96) on
-    the card's host CPU, phase B on the card, ``native`` reported from the
-    float32 run. Its VO parity gates and its PFT loss parity gate (card vs
-    CPU from the same weights) must pass. The PFT t-ATE is held to the
+    the card's host CPU, phase B on the card, ``native`` continuing in
+    bfloat16 beside ``match`` in float32. Its VO parity gates and its PFT
+    loss parity gate (card vs CPU from the same weights) must pass. The PFT t-ATE is held to the
     CPU's own spread: the card's gap to the CPU's t-ATE within
     ``SPREAD_FACTOR`` x the larger gap of the same PFT on the CPU with the
     test images one ulp up or down, at least the CLI's gate (0.050, set
@@ -779,7 +834,9 @@ def test_golden_warm_start_gate_on_card(cuda, tmp_path):
     warm = str(tmp_path / "warm")
     out = golden_eval.main(["--warm_start_gate", "--warm_dir", warm])
     print(json.dumps(out, indent=1, default=float))
-    assert out["variants"]["native"] == out["variants"]["match"]
+    native, match = out["variants"]["native"], out["variants"]["match"]
+    assert native["losses"] != match["losses"]
+    assert np.isfinite(native["losses"] + [native["rot_err"]]).all()
 
     args = golden_eval.parse_args([])
     with open(f"{warm}/warm_metrics.json") as f:
@@ -854,7 +911,7 @@ def test_evaluate_vo_classical_on_card(cuda, tmp_path):
 
     torch.backends.cudnn.allow_tf32 = False
     model_dir = str(tmp_path / "model")
-    cfg = Config(iterations=1, flow_type="classical")
+    cfg = Config(compute_dtype="float32", iterations=1, flow_type="classical")
     nets = build_models(cfg, device="cpu",
                         generator=torch.Generator().manual_seed(7))
     chip_smoke.condition_like_trained(nets[0], torch)

@@ -295,7 +295,8 @@ def test_coupled_forward_through_the_tail_matches_jax(seed, jax_state):
     pose_net.eval()
     before = (dt.LAUNCHES, gs.LAUNCHES)
     poses, poses_inv, disp, chain = infer.coupled_forward(
-        depth_net, pose_net, tgt, src, K, Config(iterations=ITERS),
+        depth_net, pose_net, tgt, src, K, Config(compute_dtype="float32",
+                                                 iterations=ITERS),
         device="cpu", depth_apply=make_tail_apply(depth_net))
     assert (dt.LAUNCHES, gs.LAUNCHES) == before
     np.testing.assert_allclose(disp.numpy(), np.asarray(disps[0][0]),

@@ -155,14 +155,15 @@ def test_demo_runs_on_the_cpu(jax_surface, tmp_path):
 
     # run(...) takes the networks it is handed
     args = demo_pft.parse_args(ARGS)
-    nets = infer.build_models(Config(iterations=2), device="cpu",
+    nets = infer.build_models(Config(compute_dtype="float32",
+                                     iterations=2), device="cpu",
                               generator=torch.Generator().manual_seed(0))
     with contextlib.redirect_stdout(io.StringIO()):
         assert demo_pft.run(args, *nets, torch.device("cpu")) == summary
 
 
 def test_perturbation_and_depth_scaling_run():
-    nets = infer.build_models(Config(), device="cpu",
+    nets = infer.build_models(Config(compute_dtype="float32"), device="cpu",
                               generator=torch.Generator().manual_seed(2))
     rng = np.random.RandomState(0)
     tgt = torch.from_numpy(rng.rand(1, H, W, 3).astype(np.float32))

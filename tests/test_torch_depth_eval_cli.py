@@ -41,7 +41,7 @@ from tcsfm_torch.infer import build_models
 from tcsfm_torch.train.checkpoint import save_checkpoint
 from test_torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
-CFG = Config(iterations=2, img_resolution="low")
+CFG = Config(compute_dtype="float32", iterations=2, img_resolution="low")
 DISP_RANGE = 1.0 / CFG.min_depth - 1.0 / CFG.max_depth
 DISP_TOL = 1e-5 * DISP_RANGE
 POSE_TOL = 1e-5

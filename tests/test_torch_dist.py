@@ -160,7 +160,7 @@ def test_world_size_one_step_is_the_plain_step(one_rank_group):
     runs = []
     for mesh in (None, one_rank_group):
         state = trainer.create_train_state(
-            Config(iterations=2), device="cpu",
+            Config(compute_dtype="float32", iterations=2), device="cpu",
             generator=torch.Generator().manual_seed(2))
         losses = trainer.train_step(state, batch, mesh=mesh)
         runs.append((losses, {f"{n}.{k}": v for n, m in (

@@ -67,7 +67,8 @@ BA_TOL = 1e-6
 
 
 def _port_nets(depth_sd, pose_sd, dtype=torch.float32):
-    state = trainer.create_train_state(Config(), device="cpu")
+    state = trainer.create_train_state(Config(compute_dtype="float32"),
+                                       device="cpu")
     state.depth_net.load_state_dict(
         {k: torch.from_numpy(v) for k, v in depth_sd.items()})
     state.pose_net.load_state_dict(
@@ -80,7 +81,8 @@ def _one_rank_f64(depth_sd, pose_sd, batch):
     sampler) on the global batch: (total, gradients by name)."""
     depth_net, pose_net = _port_nets(depth_sd, pose_sd, torch.float64)
     batch = {k: torch.from_numpy(v).double() for k, v in batch.items()}
-    losses, _ = trainer.forward_loss(Config(), depth_net, pose_net, batch,
+    losses, _ = trainer.forward_loss(Config(compute_dtype="float32"),
+                                     depth_net, pose_net, batch,
                                      train=True, sampler=gs.grid_sample_plain)
     losses["total"].backward()
     return losses["total"].item(), {
@@ -93,7 +95,8 @@ def _one_image_losses(depth_sd, pose_sd, batch):
     depth_net, pose_net = _port_nets(depth_sd, pose_sd)
     one = {k: torch.from_numpy(v[:, :1] if k.startswith("source") else v[:1])
            for k, v in batch.items()}
-    losses, _ = trainer.forward_loss(Config(), depth_net, pose_net, one,
+    losses, _ = trainer.forward_loss(Config(compute_dtype="float32"),
+                                     depth_net, pose_net, one,
                                      train=True)
     return {k: v.item() for k, v in losses.items()}
 

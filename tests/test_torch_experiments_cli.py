@@ -40,7 +40,7 @@ from test_torch_threads import one_torch_thread  # noqa: F401 (autouse)
 @pytest.fixture(scope="module")
 def model_dir(tmp_path_factory):
     d = str(tmp_path_factory.mktemp("exp_model"))
-    cfg = Config(iterations=2)
+    cfg = Config(compute_dtype="float32", iterations=2)
     depth_net, pose_net = build_models(
         cfg, device="cpu", generator=torch.Generator().manual_seed(8))
     chip_smoke.condition_like_trained(depth_net, torch)
@@ -75,7 +75,7 @@ def test_depth_scaling_is_the_library_sweep(model_dir, data_dir):
     tgt, src, K = (torch.from_numpy(batch[k]) for k in
                    ("target_img", "source_imgs", "intrinsics"))
     depth_net, pose_net = load_nets(model_dir, "cpu")
-    cfg = Config(iterations=2)
+    cfg = Config(compute_dtype="float32", iterations=2)
     depths = experiments._depths(cfg, depth_net, tgt, src)
     want = depth_scaling_response(2, depths, pose_net, tgt, src, K,
                                   out["scales"])
@@ -99,7 +99,7 @@ def test_perturbation_and_frame_skip(model_dir, data_dir):
     pert = cli(model_dir, data_dir, "perturbation")
     skip = cli(model_dir, data_dir, "frame_skip")
     depth_net, pose_net = load_nets(model_dir, "cpu")
-    cfg = Config(iterations=2)
+    cfg = Config(compute_dtype="float32", iterations=2)
     vo = VOEvaluator(cfg, depth_net, pose_net, device="cpu")
     seq = make_synthetic_sequence(8, (64, 96), seed=17)
     assert sorted(skip) == ["skip_1", "skip_2", "skip_3"]

@@ -90,7 +90,7 @@ def model_dir(tmp_path_factory):
     """A port-written classical checkpoint; returns (dir, Flax params,
     batch statistics) of its nets."""
     d = str(tmp_path_factory.mktemp("classical_model"))
-    cfg = Config(img_resolution="low", **CLASSICAL)
+    cfg = Config(compute_dtype="float32", img_resolution="low", **CLASSICAL)
     depth_net, pose_net = build_models(
         cfg, device="cpu", generator=torch.Generator().manual_seed(4))
     chip_smoke.condition_like_trained(depth_net, torch)
@@ -173,7 +173,7 @@ def test_evaluate_vo_classical_matches_jax(model_dir, tmp_path, capsys):
 
 
 def test_panels_with_flows_match_jax():
-    cfg = Config(**CLASSICAL)
+    cfg = Config(compute_dtype="float32", **CLASSICAL)
     depth_net, pose_net = build_models(
         cfg, device="cpu", generator=torch.Generator().manual_seed(5))
     chip_smoke.condition_like_trained(depth_net, torch)
@@ -231,7 +231,8 @@ def test_port_iterative_paths_refuse_flow_channels(path):
     from tcsfm_torch.solver.pft import PFTOptimizer
     from tcsfm_torch.train.trainer import create_train_state, train_step
 
-    cfg = Config(img_resolution="low", flow_type="classical", iterations=2)
+    cfg = Config(compute_dtype="float32",
+                 img_resolution="low", flow_type="classical", iterations=2)
     tgt, src, K = _windows()
     with pytest.raises(ValueError, match="6-channel pairs, but this pose "
                                          "net takes 8"):
@@ -251,7 +252,8 @@ def test_port_iterative_paths_refuse_flow_channels(path):
                 device="cpu")
         else:
             iters = 2 if path == "vo_iterative" else 1
-            run_cfg = Config(flow_type="classical", iterations=iters)
+            run_cfg = Config(compute_dtype="float32",
+                             flow_type="classical", iterations=iters)
             ev = vo.VOEvaluator(run_cfg, *build_models(run_cfg, device="cpu"),
                                 device="cpu")
             ev.infer(tgt, src[:1], K,

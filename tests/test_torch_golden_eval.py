@@ -158,7 +158,7 @@ def test_refusal_exits_non_zero():
 @pytest.fixture(scope="module")
 def model_dir(tmp_path_factory):
     d = str(tmp_path_factory.mktemp("golden_model"))
-    cfg = Config(iterations=2, img_resolution="low")
+    cfg = Config(compute_dtype="float32", iterations=2, img_resolution="low")
     depth_net, pose_net = build_models(
         cfg, device="cpu", generator=torch.Generator().manual_seed(3))
     chip_smoke.condition_like_trained(depth_net, torch)
@@ -251,7 +251,8 @@ def test_untrained_metrics_from_jax_init():
     where f32 resolves the coupled forward least (ROADMAP §3)."""
     from tcsfm_torch.eval.vo import VOEvaluator
 
-    cfg = Config(iterations=2, img_resolution="low", minibatch=4, lr=5e-5,
+    cfg = Config(compute_dtype="float32",
+                 iterations=2, img_resolution="low", minibatch=4, lr=5e-5,
                  num_scales=1)
     depth_net, pose_net = port_nets_from_jax_init(cfg)
     seq = make_synthetic_sequence(24, (64, 96), seed=11)

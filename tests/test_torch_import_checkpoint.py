@@ -36,7 +36,8 @@ def seeded_nets(seed):
     """Seeded nets with random BatchNorm running statistics, so the import
     of the statistics shows."""
     depth_net, pose_net = build_models(
-        Config(), device="cpu", generator=torch.Generator().manual_seed(seed))
+        Config(compute_dtype="float32"), device="cpu",
+        generator=torch.Generator().manual_seed(seed))
     g = torch.Generator().manual_seed(seed + 100)
     for name, buf in depth_net.named_buffers():
         if name.endswith("running_mean"):
@@ -74,7 +75,8 @@ def test_reference_import_matches_jax():
     assert (ours["epoch"], ours["best_val_loss"]) == (ref["epoch"],
                                                       ref["best_val_loss"])
     # loads into the port's nets, statistics as stored
-    depth_net, pose_net = build_models(Config(), device="cpu")
+    depth_net, pose_net = build_models(Config(compute_dtype="float32"),
+                                       device="cpu")
     depth_net.load_state_dict(ours["depth"])
     pose_net.load_state_dict(ours["pose"])
     src = ckpt["depth_state_dict"]
@@ -115,7 +117,8 @@ def test_torchvision_import_matches_jax():
     assert all(k.startswith(ENC) for k in enc)
 
     base_depth, base_pose = build_models(
-        Config(), device="cpu", generator=torch.Generator().manual_seed(2))
+        Config(compute_dtype="float32"), device="cpu",
+        generator=torch.Generator().manual_seed(2))
     ours = ti.warm_start_encoder(base_depth.state_dict(), enc)
     flax_params, flax_stats = to_flax(base_depth.state_dict(),
                                       base_pose.state_dict())

@@ -106,7 +106,7 @@ def test_mean_on_mask(valid_share):
 def test_pairwise_loss(name):
     tgt, src, disps, poses, _, K = _inputs(4)
     jcfg = JaxConfig(use_mxu_warp=False, **CONFIGS[name])
-    cfg = Config(**CONFIGS[name])
+    cfg = Config(compute_dtype="float32", **CONFIGS[name])
     depth = 1.0 / (0.4 + 16.0 * disps[0][0])
     ref_depth = 1.0 / (0.4 + 16.0 * disps[1][0])
     args = (tgt, src[0], depth, ref_depth, -poses[0], K)
@@ -148,7 +148,7 @@ def _port(name, inputs, sampler=gs.grid_sample, dtype=torch.float32):
     def t(x):
         return torch.from_numpy(np.asarray(x)).to(dtype)
 
-    cfg = Config(**CONFIGS[name])
+    cfg = Config(compute_dtype="float32", **CONFIGS[name])
     t_disps = [[t(d).requires_grad_(True) for d in f] for f in disps]
     t_poses = t(poses).requires_grad_(True)
     t_poses_inv = t(poses_inv).requires_grad_(True)

@@ -52,7 +52,7 @@ def nets():
     one trained, and the one each checkpoint is resumed into."""
     out = []
     for seed in (0, 3):
-        pair = build_models(Config(), device="cpu",
+        pair = build_models(Config(compute_dtype="float32"), device="cpu",
                             generator=torch.Generator().manual_seed(seed))
         out.append((pair, to_flax(*(m.state_dict() for m in pair))))
     return out
@@ -79,7 +79,8 @@ def _states(kw, nets):
     (trainer.create_train_state's, without its seeded init), and JAX's on
     its Flax trees, built by hand."""
     (pair, (params, stats)) = nets
-    cfg = Config(lr=LR, lr_decay_epoch=1, iterations=2, **kw)
+    cfg = Config(compute_dtype="float32",
+                 lr=LR, lr_decay_epoch=1, iterations=2, **kw)
     depth_net, pose_net = (copy.deepcopy(m) for m in pair)
     depth_net.requires_grad_(not cfg.freeze_depthnet)
     pose_net.requires_grad_(not cfg.freeze_posenet)

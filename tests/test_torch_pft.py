@@ -165,7 +165,8 @@ def smooth_window(seed):
 @pytest.fixture(scope="module")
 def nets():
     depth_net, pose_net = infer.build_models(
-        Config(), device="cpu", generator=torch.Generator().manual_seed(0))
+        Config(compute_dtype="float32"), device="cpu",
+        generator=torch.Generator().manual_seed(0))
     chip_smoke.condition_like_trained(depth_net, torch)
     return depth_net, pose_net
 
@@ -173,7 +174,8 @@ def nets():
 def _optimizer(nets, mode, **opts):
     kw = dict(epochs=3, avg_final_epochs=2, num_source_imgs=S)
     kw.update(opts)
-    return pft.PFTOptimizer(Config(iterations=ITERS), PFTOptions(**kw),
+    return pft.PFTOptimizer(Config(compute_dtype="float32",
+                                   iterations=ITERS), PFTOptions(**kw),
                             *nets, mode=mode)
 
 
@@ -279,7 +281,8 @@ def test_sgd_and_the_errors(nets, monkeypatch):
         smooth_window(3), device="cpu")
     assert torch.isfinite(res.losses).all()
     with pytest.raises(ValueError, match="unknown PFT mode"):
-        pft.PFTOptimizer(Config(), PFTOptions(), *nets, mode="skips")
+        pft.PFTOptimizer(Config(compute_dtype="float32"),
+                         PFTOptions(), *nets, mode="skips")
     with pytest.raises(ValueError, match="rmsprop"):
         _optimizer(nets, "encoder", optimizer="rmsprop").optimize_window(
             smooth_window(3), device="cpu")

@@ -113,7 +113,8 @@ def run_both(mode):
     pose_net.load_state_dict(pose_sd)
     depth_net.double().eval()
     pose_net.double().eval()
-    port_opt = PFTOptimizer(Config(iterations=ITERS), PFTOptions(**OPTS),
+    port_opt = PFTOptimizer(Config(compute_dtype="float32",
+                                   iterations=ITERS), PFTOptions(**OPTS),
                             depth_net, pose_net, mode=mode,
                             record_history=True)
     res = port_opt.optimize_window(batch, device="cpu",

@@ -48,7 +48,7 @@ CHAIN = ["--synthetic", "--synthetic_frames", "7", "--chain_block", "4",
 @pytest.fixture(scope="module")
 def chain_runs(tmp_path_factory):
     d = str(tmp_path_factory.mktemp("chain_model"))
-    cfg = Config(iterations=2, img_resolution="low")
+    cfg = Config(compute_dtype="float32", iterations=2, img_resolution="low")
     depth_net, pose_net = build_models(
         cfg, device="cpu", generator=torch.Generator().manual_seed(4))
     chip_smoke.condition_like_trained(depth_net, torch)

@@ -51,7 +51,7 @@ SMALL = ["--synthetic", "--synthetic_frames", "6", "--epochs", "3",
 @pytest.fixture(scope="module")
 def model_dir(tmp_path_factory):
     d = str(tmp_path_factory.mktemp("seq_model"))
-    cfg = Config(iterations=2, img_resolution="low")
+    cfg = Config(compute_dtype="float32", iterations=2, img_resolution="low")
     depth_net, pose_net = build_models(
         cfg, device="cpu", generator=torch.Generator().manual_seed(4))
     chip_smoke.condition_like_trained(depth_net, torch)
@@ -118,7 +118,7 @@ def test_adam_is_pft_window_by_window(model_dir, tmp_path):
                        extra + ["--scaling", "none"])
 
     depth_net, pose_net = load_nets(model_dir, "cpu")
-    opt = PFTOptimizer(Config(iterations=2),
+    opt = PFTOptimizer(Config(compute_dtype="float32", iterations=2),
                        PFTOptions(epochs=2, avg_final_epochs=5,
                                   num_source_imgs=2),
                        depth_net, pose_net, mode="encoder")
@@ -190,7 +190,7 @@ def test_file_backed_sequence(model_dir, tmp_path):
     assert np.isfinite(res["u8"]["errors_optimized"][0])
 
     depth_net, pose_net = load_nets(model_dir, "cpu")
-    opt = PFTOptimizer(Config(iterations=2),
+    opt = PFTOptimizer(Config(compute_dtype="float32", iterations=2),
                        PFTOptions(epochs=2, avg_final_epochs=5,
                                   num_source_imgs=2),
                        depth_net, pose_net, mode="encoder")

@@ -102,7 +102,7 @@ def ref():
 
 
 def _port_state(ref, cfg=None, device="cpu", **kw):
-    cfg = cfg or Config()
+    cfg = cfg or Config(compute_dtype="float32")
     state = trainer.create_train_state(cfg, device=device, **kw)
     depth_sd, pose_sd = from_flax(ref["params"], ref["stats"])
     state.depth_net.load_state_dict(depth_sd)
@@ -214,7 +214,7 @@ def test_adam_update_matches_optax(ref):
     torch.optim forms them in float64."""
     for kw in ({}, {"wd": 0.1}, {"freeze_posenet": True},
                {"freeze_depthnet": True}):
-        cfg = Config(lr=1e-2, lr_decay_epoch=1, **kw)
+        cfg = Config(compute_dtype="float32", lr=1e-2, lr_decay_epoch=1, **kw)
         jcfg = JaxConfig(lr=1e-2, lr_decay_epoch=1, **kw)
         state = trainer.create_train_state(cfg, device="cpu",
                                            steps_per_epoch=1)
@@ -258,7 +258,7 @@ def test_freeze_flags(ref, frozen):
     """A frozen net is left out of the optimizer and does not move; a
     frozen depth net runs eval-mode BatchNorm, so its statistics stay and
     the step's losses are the eval losses."""
-    cfg = Config(freeze_depthnet=frozen == "depth",
+    cfg = Config(compute_dtype="float32", freeze_depthnet=frozen == "depth",
                  freeze_posenet=frozen == "pose", iterations=2)
     state = _port_state(ref, cfg)
     assert [g["name"] for g in state.optimizer.param_groups] == (
@@ -288,8 +288,9 @@ def test_freeze_flags(ref, frozen):
 def test_create_train_state_needs_a_card_unless_cpu(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
-        trainer.create_train_state(Config())
-    state = trainer.create_train_state(Config(iterations=2), device="cpu")
+        trainer.create_train_state(Config(compute_dtype="float32"))
+    state = trainer.create_train_state(Config(compute_dtype="float32",
+                                              iterations=2), device="cpu")
     assert state.device.type == "cpu" and state.step == 0
     before = (gs.LAUNCHES, gs.LAUNCHES_BWD_COORDS, gs.LAUNCHES_BWD_IMG)
     trainer.train_step(state, _batch(3, 64, 96))
@@ -300,7 +301,7 @@ def test_create_train_state_needs_a_card_unless_cpu(monkeypatch):
 def test_trainer_run_epoch(capsys):
     """Mean losses over the loader, one step a batch; the depth-collapse
     warning when the disparity head saturates."""
-    cfg = Config(iterations=1)
+    cfg = Config(compute_dtype="float32", iterations=1)
     state = trainer.create_train_state(cfg, device="cpu")
     loop = trainer.Trainer(state)
     loader = [_batch(4, 64, 96), _batch(5, 64, 96)]

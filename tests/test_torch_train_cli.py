@@ -56,7 +56,8 @@ from tcsfm_torch.train.logging import MetricsWriter
 from test_torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 ARGS = ["--synthetic", "--img_resolution", "low", "--minibatch", "2",
-        "--synthetic_frames", "4", "--device", "cpu", "--date", "run"]
+        "--synthetic_frames", "4", "--device", "cpu", "--date", "run",
+        "--compute_dtype", "float32"]
 STEPS_PER_EPOCH = 2
 TAGS = ("total", "l_reconstruct_forward", "l_reconstruct_inverse")
 
@@ -92,10 +93,10 @@ def two_ranks(tmp_path_factory):
     coupled solver's poses (ROADMAP §3), so the two runs start from a
     checkpoint of conditioned nets."""
     pretrained = str(tmp_path_factory.mktemp("pretrained"))
-    nets = build_models(Config(), device="cpu")
+    nets = build_models(Config(compute_dtype="float32"), device="cpu")
     chip_smoke.condition_like_trained(nets[0], torch)
     save_checkpoint(pretrained, nets, epoch=1, best_val_loss=1.0,
-                    cfg=Config(), is_best=True)
+                    cfg=Config(compute_dtype="float32"), is_best=True)
     args = ONE_STEP + ["--pretrained_dir", pretrained]
     results = str(tmp_path_factory.mktemp("two_ranks"))
     with ThreadPoolExecutor(1) as pool:
@@ -201,7 +202,8 @@ def test_several_devices_raise(tmp_path):
 def _checkpoint_nets(args):
     """The nets of ``--pretrained_dir``'s best model."""
     d = args[args.index("--pretrained_dir") + 1]
-    state = trainer.create_train_state(Config(), device="cpu")
+    state = trainer.create_train_state(Config(compute_dtype="float32"),
+                                       device="cpu")
     state, _, _ = load_checkpoint(d, state, load_best=True)
     return state.depth_net, state.pose_net
 
@@ -209,7 +211,8 @@ def _checkpoint_nets(args):
 def _checkpoint(run_dir):
     """The checkpoint's epoch, tensors by name and Adam first moments by
     parameter name."""
-    state = trainer.create_train_state(Config(), device="cpu")
+    state = trainer.create_train_state(Config(compute_dtype="float32"),
+                                       device="cpu")
     state, epoch, _ = load_checkpoint(run_dir, state, load_best=False)
     nets = (("depth", state.depth_net), ("pose", state.pose_net))
     moments = state.optimizer.state_dict()["state"]
@@ -363,12 +366,13 @@ def remat_steps():
     the calls)."""
     batch = chip_smoke.train_batch(torch, 2, 2, 64, 96, seed=3, device="cpu")
     base = trainer.create_train_state(
-        Config(), device="cpu", generator=torch.Generator().manual_seed(4))
+        Config(compute_dtype="float32"), device="cpu",
+        generator=torch.Generator().manual_seed(4))
     chip_smoke.condition_like_trained(base.depth_net, torch)
     out = {}
     for remat in (True, False):
         state = copy.deepcopy(base)
-        state.cfg = Config(remat_coupled=remat)
+        state.cfg = Config(compute_dtype="float32", remat_coupled=remat)
         calls = []
 
         def counting(img, coords, tail=None):
@@ -406,7 +410,7 @@ def test_remat_with_error_products():
     """``return_errors=True`` with remat (every iteration a recomputed
     body, the last one 4-channel): outputs and the pose net's and depths'
     gradients bit-equal to the path without it."""
-    cfg = Config()
+    cfg = Config(compute_dtype="float32")
     _, pose_net = build_models(cfg, device="cpu",
                                generator=torch.Generator().manual_seed(5))
     b = chip_smoke.train_batch(torch, 2, 2, 64, 96, seed=3, device="cpu")

@@ -54,7 +54,7 @@ class Jitted:
 
 @pytest.fixture(scope="module")
 def setting():
-    cfg = Config(iterations=ITERS)
+    cfg = Config(compute_dtype="float32", iterations=ITERS)
     depth_net, pose_net = build_models(
         cfg, device="cpu", generator=torch.Generator().manual_seed(2))
     chip_smoke.condition_like_trained(depth_net, torch)

@@ -52,7 +52,7 @@ def nan_equal(a, b):
 @pytest.fixture(scope="module")
 def model_dir(tmp_path_factory):
     d = str(tmp_path_factory.mktemp("vo_model"))
-    cfg = Config(iterations=2, img_resolution="low")
+    cfg = Config(compute_dtype="float32", iterations=2, img_resolution="low")
     depth_net, pose_net = build_models(
         cfg, device="cpu", generator=torch.Generator().manual_seed(3))
     chip_smoke.condition_like_trained(depth_net, torch)
@@ -126,7 +126,8 @@ def test_run_sequence_matches_jax(model_dir, jax_run):
 
     _, preds = jax_run
     depth_net, pose_net = load_nets(model_dir, "cpu")
-    ev = vo.VOEvaluator(Config(iterations=2), depth_net, pose_net,
+    ev = vo.VOEvaluator(Config(compute_dtype="float32",
+                               iterations=2), depth_net, pose_net,
                         device="cpu")
     res = ev.run_sequence(make_synthetic_sequence(24, (64, 96), seed=11),
                           batch_size=4, verbose=False)
@@ -149,7 +150,8 @@ def test_cli_matches_jax_and_replays(model_dir, jax_run, tmp_path, capsys):
     preds = str(tmp_path / "preds")
     out = evaluate_vo.main(["--model_dir", model_dir, "--synthetic",
                             "--device", "cpu", "--save_preds", preds])
-    assert "compute dtype: the config asks float32" in capsys.readouterr().out
+    # the model's float32 config is the run's: no dtype note
+    assert "compute dtype" not in capsys.readouterr().out
     got = out["synthetic"]
     assert sorted(got) == sorted(ref)
     for k in ERROR_KEYS:

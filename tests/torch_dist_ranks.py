@@ -54,7 +54,8 @@ def step_rank(depth_sd, pose_sd, batch):
     returns the gradients and statistics; every rank its losses and a
     digest of its weights after Adam."""
     mesh = make_mesh(2, device="cpu")
-    state = trainer.create_train_state(Config(), mesh=mesh,
+    state = trainer.create_train_state(Config(compute_dtype="float32"),
+                                       mesh=mesh,
                                        steps_per_epoch=10)
     _load(state.depth_net, depth_sd)
     _load(state.pose_net, pose_sd)
@@ -71,7 +72,8 @@ def step_rank(depth_sd, pose_sd, batch):
                         if "running" in k}
 
     batch64 = {k: v.double() for k, v in local.items()}
-    losses64, _ = trainer.forward_loss(Config(), depth64, pose64, batch64,
+    losses64, _ = trainer.forward_loss(Config(compute_dtype="float32"),
+                                       depth64, pose64, batch64,
                                        train=True,
                                        sampler=gs.grid_sample_plain,
                                        mesh=mesh)
