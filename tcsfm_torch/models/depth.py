@@ -85,7 +85,8 @@ class DepthNet(nn.Module):
     def encode(self, x: torch.Tensor) -> List[torch.Tensor]:
         """Image [B, H, W, 3] → 5 NCHW skip features, after the reference's
         (x - 0.45) / 0.22 input normalization (in the images' float32, then
-        cast to the compute dtype)."""
+        cast to a bfloat16 compute dtype; float32 casts nothing, so a net
+        moved to float64 keeps its float64, ``models/layers.py``)."""
         x = (x.permute(0, 3, 1, 2) - 0.45) / 0.22
         if self.compute_dtype != torch.float32:
             x = x.to(self.compute_dtype)

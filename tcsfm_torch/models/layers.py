@@ -15,7 +15,10 @@ standardizes its weight in float32 and then casts it; ``GroupNorm16`` and
 ``BatchNorm2d`` normalize in float32 from the bfloat16 input and round
 their output to bfloat16, the running statistics staying float32 (Flax's
 ``force_float32_reductions``). In float32 each layer runs its float32
-code unchanged.
+code unchanged and casts nothing: a net moved to float64 with
+``.double()`` (the float64 paths of the coupled solver, PFT and the
+distributed BatchNorm) must keep its float64, which a cast to float32
+would take away.
 """
 
 from __future__ import annotations
@@ -127,7 +130,7 @@ class BatchNorm2d(nn.BatchNorm2d):
         return dev * scale[None, :, None, None] + self.bias[None, :, None, None]
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        if self.compute_dtype == torch.float32:
+        if self.compute_dtype == torch.float32:     # or float64 (.double())
             return self._forward(x)
         return self._forward(x.float()).to(self.compute_dtype)
 
@@ -189,7 +192,7 @@ class GroupNorm16(nn.GroupNorm):
         self.compute_dtype = dtype
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        if self.compute_dtype == torch.float32:
+        if self.compute_dtype == torch.float32:     # or float64 (.double())
             return super().forward(x)
         return super().forward(x.float()).to(self.compute_dtype)
 

@@ -36,7 +36,9 @@ class PoseNet(nn.Module):
 
     def forward(self, imgs: torch.Tensor) -> torch.Tensor:
         """imgs: [N, H, W, in_channels] stacked pair → [N, 6] pose
-        [t, r] * 0.01."""
+        [t, r] * 0.01, in float32 from a bfloat16 net (float32 casts
+        nothing, so a net moved to float64 keeps its float64,
+        ``models/layers.py``)."""
         x = (imgs.permute(0, 3, 1, 2) - 0.45) / 0.22
         if self.compute_dtype != torch.float32:
             x = x.to(self.compute_dtype)

@@ -15,25 +15,52 @@ the printout:
   the pose chain at each iteration, relative L2 within 2 x gap (measured:
   disparity 1.19 x, chain 0.55-1.15 x);
 * one training step at 96x160, B=2 (where the inverse term clears its
-  10,000-pixel guard), ``remat_coupled`` on. Its numbers pass through
-  the 4-iteration solver on bfloat16 poses, so the step is resolved only
-  to its own rounding noise: the port's bfloat16 step with the images
-  one f32 ulp up or down (one in ~65,000 bfloat16 roundings of the
-  networks' inputs flips) moves its loss terms by up to 1.2e-2, more
-  than the bfloat16-vs-float32 gap of some. Each quantity is held at
-  STEP_FRACTION = 5 x the larger of JAX's gap and that spread (measured:
-  0.21-3.46 x; the forward reconstruction term 3.46 x, which moves
-  1.3e-3 between one CPU thread and four):
+  10,000-pixel guard), ``remat_coupled`` on, at 2 solver iterations (one
+  warp inside the solver, so its sampler and its remat are on the
+  gradient's path), where bfloat16 resolves the step's gradient: at the
+  config's 4 the solver iterates on bfloat16 poses and the gradient is
+  noise (JAX's
+  own bfloat16-vs-float32 1 - cos 0.126, the port's one-ulp spread 0.139,
+  a gradient with the depth net's part zeroed reads 0.158 against JAX's;
+  the Adam update 0.92 from JAX's float32 one where no update reads 1.0);
+  at 2, 1 - cos 0.016. Its spread: the port's bfloat16 step again with
+  the images one f32 ulp up and one down (one in ~65,000 bfloat16
+  roundings of the networks' inputs flips). Each quantity within
+  FRACTION x the larger of JAX's gap and that spread (parity / gap /
+  spread):
   - each loss term, relative; ``mean_disp``/``std_disp`` in bfloat16 as
-    JAX reports them;
-  - the gradient cannot be resolved in bfloat16 (f32 resolves it only to
-    ~1e-2, ``tests/test_torch_train.py``): its direction is held instead,
-    1 - cos(port, JAX) of the flattened gradient (float32 on both sides,
-    the parameters being float32; measured 1.13 x: 0.157 against gap
-    0.126 and spread 0.139);
-  - the Adam update (the new parameters less the old), relative L2: a
-    first Adam step is nearly lr x sign(gradient), so this reads how many
-    gradient signs the runs share (measured 1.01 x).
+    JAX reports them: l_pose_consist 3.10e-3 / 1.64e-3 / 3.56e-3,
+    l_reconstruct_forward 3.19e-4 / 5.71e-4 / 7.31e-4,
+    l_reconstruct_inverse 7.79e-5 / 6.76e-4 / 3.76e-4, l_smooth
+    3.98e-4 / 4.67e-4 / 1.64e-4, total 6.20e-4 / 3.35e-4 / 5.59e-4 (1.11
+    x), mean_disp and std_disp equal;
+  - the gradient's direction by network, 1 - cos(port, JAX) of each net's
+    flattened gradient (float32 on both sides; f32 resolves it only to
+    ~1e-2 relative, ``tests/test_torch_train.py``): depth 4.60e-2 /
+    5.87e-2 / 4.66e-2, pose 1.25e-2 / 1.57e-2 / 1.27e-2. The pose net holds
+    99.8% of the gradient's norm, so one direction for both would not see
+    the depth net's part. Control: the net's gradient with every second
+    leaf (by size) zeroed reads 0.33 (depth) and 0.32 (pose), past the
+    limits of 0.118 and 0.031, and the test asserts it;
+  - the Adam update, two ways. The optimizer: JAX's Adam on the port's
+    own gradient gives the port's new parameters within 5e-5 of the lr
+    beyond one f32 ulp of the parameter (``tests/test_torch_train.py``'s
+    rule; measured 6.9e-6). The update against JAX's: a first Adam step is
+    nearly lr x sign(gradient), so on the elements whose sign JAX's
+    bfloat16 and float32 steps share (depth 86.6%, pose 95.2%) the share
+    whose sign the port's differs in, within FRACTION x the port's own
+    one-ulp spread of it (depth 7.11% against 8.71%, pose 2.53% against
+    2.87%; no update reads 100%, every second leaf unchanged 62% and 58%,
+    asserted);
+* the step at the config's 4 iterations: its losses only, within
+  FOUR_ITERATION_FRACTION = 5 x the larger of gap and spread (measured
+  0.03-3.46 x; the forward reconstruction term 3.46 x: 3.52e-3 / 1.02e-3 /
+  9.90e-4, and it moves 1.3e-3 between one CPU thread and four).
+Planted faults (each in a copy of the port): the smoothness term left out
+of the total fails the losses at both iteration counts (total 70.6 x and
+7.5 x) and the depth net's direction (0.427); the pose net's gradients
+zeroed fail its direction and its update; the depth net's lr doubled fails
+the optimizer check (1.0 of the lr).
 * the loss stack alone on the same bfloat16 disparities, both configs'
   depth terms: within 1e-5 (its test's docstring).
 The gradients and Adam's moments are float32, as JAX's are.
@@ -69,8 +96,10 @@ from test_torch_train import _batch, _tree
 BF16 = torch.bfloat16
 DTYPES = {"float32": torch.float32, "bfloat16": BF16}
 FRACTION = 2.0
-STEP_FRACTION = 5.0
+FOUR_ITERATION_FRACTION = 5.0
+ADAM_TOL = 5e-5
 ITERS = 4
+STEP_ITERS = 2
 
 
 @pytest.fixture(scope="module")
@@ -135,15 +164,23 @@ def test_coupled_forward_matches_jax(weights):
                      FRACTION, f"pose chain, iteration {it}")
 
 
-def _jax_step(params, stats, batch, compute_dtype):
+def _jax_config(compute_dtype, iterations):
+    return JaxConfig(compute_dtype=compute_dtype, img_resolution="low",
+                     use_mxu_warp=False, iterations=iterations)
+
+
+def _jax_train_state(params, stats, jcfg):
+    tx = jax_make_optimizer(jcfg, 10)
+    return JaxTrainState(step=jnp.zeros((), jnp.int32), params=params,
+                         batch_stats=stats, opt_state=tx.init(params), tx=tx)
+
+
+def _jax_step(params, stats, batch, compute_dtype, iterations):
     """JAX's losses, gradients and Adam-updated parameters after one step."""
-    jcfg = JaxConfig(compute_dtype=compute_dtype, img_resolution="low",
-                     use_mxu_warp=False, iterations=ITERS)
+    jcfg = _jax_config(compute_dtype, iterations)
     depth_model = JaxDepthNet(dtype=jnp.dtype(compute_dtype))
     pose_model = JaxPoseNet(dtype=jnp.dtype(compute_dtype))
-    tx = jax_make_optimizer(jcfg, 10)
-    state = JaxTrainState(step=jnp.zeros((), jnp.int32), params=params,
-                          batch_stats=stats, opt_state=tx.init(params), tx=tx)
+    state = _jax_train_state(params, stats, jcfg)
 
     def loss_fn(p, stats, batch):
         losses, _, _ = jax_forward_loss(jcfg, depth_model, pose_model, p,
@@ -154,7 +191,7 @@ def _jax_step(params, stats, batch, compute_dtype):
     def step(state, batch):
         grads, losses = jax.grad(loss_fn, has_aux=True)(
             state.params, state.batch_stats, batch)
-        return grads, losses, state.apply_gradients(grads).params
+        return grads, losses, state.apply_gradients(grads=grads).params
 
     grads, losses, new = step(state, batch)
     return _tree(grads), losses, _tree(new)
@@ -165,10 +202,10 @@ def _flat(tree) -> np.ndarray:
                            jax.tree_util.tree_leaves(tree)])
 
 
-def _port_step(params, stats, batch, compute_dtype):
+def _port_step(params, stats, batch, compute_dtype, iterations):
     state = trainer.create_train_state(
-        Config(compute_dtype=compute_dtype, iterations=ITERS), device="cpu",
-        steps_per_epoch=10)
+        Config(compute_dtype=compute_dtype, iterations=iterations),
+        device="cpu", steps_per_epoch=10)
     depth_sd, pose_sd = from_flax(params, stats)
     state.depth_net.load_state_dict(depth_sd)
     state.pose_net.load_state_dict(pose_sd)
@@ -198,42 +235,50 @@ def _one_ulp(batch, direction):
             if k in IMAGE_KEYS else v for k, v in batch.items()}
 
 
-@pytest.fixture(scope="module")
-def steps(weights):
-    """JAX's and the port's step in each dtype from the same weights, and
-    the port's bf16 step again with the images one ulp up and one down
-    (its own spread)."""
-    params, stats = weights
+def _step_runs(params, stats, iterations, port_f32):
+    """JAX's step in each dtype from the same weights, the port's bf16
+    step (and its f32 one if ``port_f32``), and the port's bf16 step again
+    with the images one ulp up and one down (its own spread)."""
     batch = _batch(0, 96, 160)
     jbatch = jax.tree_util.tree_map(jnp.asarray, batch)
     out = {}
     for name in DTYPES:
-        grads, losses, new = _jax_step(params, stats, jbatch, name)
-        state, port_losses = _port_step(params, stats, batch, name)
-        port_grads, port_new = _port_trees(state)
-        out[name] = dict(grads=grads, losses=losses, new=new,
-                         port_grads=port_grads, port_losses=port_losses,
-                         port_new=port_new, state=state)
+        grads, losses, new = _jax_step(params, stats, jbatch, name,
+                                       iterations)
+        out[name] = dict(grads=grads, losses=losses, new=new)
+        if name == "bfloat16" or port_f32:
+            state, port_losses = _port_step(params, stats, batch, name,
+                                            iterations)
+            port_grads, port_new = _port_trees(state)
+            out[name].update(port_grads=port_grads, port_losses=port_losses,
+                             port_new=port_new, state=state)
     out["moved"] = []
     for direction in (2.0, -1.0):
         state, losses = _port_step(params, stats, _one_ulp(batch, direction),
-                                   "bfloat16")
+                                   "bfloat16", iterations)
         out["moved"].append(dict(zip(("port_grads", "port_new"),
                                      _port_trees(state)),
                                  port_losses=losses))
-    return params, out
+    return params, stats, out
 
 
-def _held(parity, gap, spread, what):
-    """parity within STEP_FRACTION x the larger of the gap and the
-    spread."""
+@pytest.fixture(scope="module")
+def steps(weights):
+    return _step_runs(*weights, STEP_ITERS, port_f32=True)
+
+
+def _held(parity, gap, spread, fraction, what):
+    """parity within ``fraction`` x the larger of the gap and the
+    spread; returns the limit."""
+    limit = fraction * max(gap, spread)
     print(f"{what}: parity {parity:.3e}, gap {gap:.3e}, spread "
-          f"{spread:.3e} ({parity / max(gap, spread):.3g} x the larger)")
-    assert parity <= STEP_FRACTION * max(gap, spread), what
+          f"{spread:.3e} ({parity / max(gap, spread):.3g} x the larger, "
+          f"limit {limit:.3e})")
+    assert parity <= limit, what
+    return limit
 
 
-def test_step_losses_match_jax(steps):
-    _, out = steps
+def _check_losses(out, fraction):
     f32, bf16 = out["float32"], out["bfloat16"]
     assert set(bf16["port_losses"]) == set(bf16["losses"])
     assert float(bf16["losses"]["l_reconstruct_inverse"]) > 0
@@ -249,12 +294,22 @@ def test_step_losses_match_jax(steps):
         spread = max(abs(float(m["port_losses"][k]) - ours) / abs(ours)
                      for m in out["moved"])
         _held(abs(ours - j16) / abs(j16), abs(j16 - j32) / abs(j32), spread,
-              f"loss {k}")
+              fraction, f"loss {k}")
+
+
+def test_step_losses_match_jax(steps):
+    _check_losses(steps[2], FRACTION)
+
+
+def test_step_losses_match_jax_at_four_iterations(weights):
+    """The step at the config's 4 iterations: its losses only (the
+    docstring says why its gradient is held at 2)."""
+    _check_losses(_step_runs(*weights, ITERS, port_f32=False)[2],
+                  FOUR_ITERATION_FRACTION)
 
 
 def test_step_state_stays_float32(steps):
-    _, out = steps
-    state = out["bfloat16"]["state"]
+    state = steps[2]["bfloat16"]["state"]
     for net in (state.depth_net, state.pose_net):
         for p in net.parameters():
             assert p.dtype == torch.float32 and p.grad.dtype == torch.float32
@@ -263,28 +318,95 @@ def test_step_state_stays_float32(steps):
                    if torch.is_tensor(v) and v.is_floating_point())
 
 
-def test_step_gradient_direction_matches_jax(steps):
-    _, out = steps
+def _by_net(tree, net):
+    """The flattened leaves of one network (``"depth"`` or ``"pose"``),
+    and the slice of each leaf in that vector, largest leaf first."""
+    leaves = [np.asarray(a, np.float64).ravel()
+              for a in jax.tree_util.tree_leaves(tree[net])]
+    ends = np.cumsum([0] + [a.size for a in leaves])
+    spans = sorted((slice(ends[i], ends[i + 1]) for i in range(len(leaves))),
+                   key=lambda sl: sl.start - sl.stop)
+    return np.concatenate(leaves), spans
 
-    def one_minus_cos(a, b):
-        return 1.0 - float(a @ b / (np.linalg.norm(a) * np.linalg.norm(b)))
 
-    jb, jf = _flat(out["bfloat16"]["grads"]), _flat(out["float32"]["grads"])
-    pb = _flat(out["bfloat16"]["port_grads"])
-    spread = max(one_minus_cos(_flat(m["port_grads"]), pb)
+def _half_zeroed(v, spans):
+    """``v`` with every second leaf, by size, zeroed: about half of the
+    parameters lose their gradient or update."""
+    v = v.copy()
+    for sl in spans[::2]:
+        v[sl] = 0.0
+    return v
+
+
+def _one_minus_cos(a, b) -> float:
+    return 1.0 - float(a @ b / (np.linalg.norm(a) * np.linalg.norm(b)))
+
+
+@pytest.mark.parametrize("net", ["depth", "pose"])
+def test_step_gradient_direction_matches_jax(steps, net):
+    out = steps[2]
+    jb, spans = _by_net(out["bfloat16"]["grads"], net)
+    jf = _by_net(out["float32"]["grads"], net)[0]
+    pb = _by_net(out["bfloat16"]["port_grads"], net)[0]
+    spread = max(_one_minus_cos(_by_net(m["port_grads"], net)[0], pb)
                  for m in out["moved"])
-    _held(one_minus_cos(pb, jb), one_minus_cos(jb, jf), spread,
-          "gradient, 1 - cos")
+    limit = _held(_one_minus_cos(pb, jb), _one_minus_cos(jb, jf), spread,
+                  FRACTION, f"{net} net gradient, 1 - cos")
+    control = _one_minus_cos(_half_zeroed(pb, spans), jb)
+    print(f"{net} net gradient with half its leaves zeroed: 1 - cos "
+          f"{control:.3e}")
+    assert control > limit, "the limit does not see half a gradient lost"
 
 
-def test_step_adam_update_matches_jax(steps):
-    params, out = steps
-    old = _flat(params)
-    upd = {name: _flat(out[name]["new"]) - old for name in DTYPES}
-    port = _flat(out["bfloat16"]["port_new"]) - old
-    spread = max(rel(_flat(m["port_new"]) - old, port) for m in out["moved"])
-    _held(rel(port, upd["bfloat16"]), rel(upd["bfloat16"], upd["float32"]),
-          spread, "Adam update")
+def _sign_flips(update, ref, mask) -> float:
+    return float(np.mean(np.sign(update[mask]) != np.sign(ref[mask])))
+
+
+@pytest.mark.parametrize("net", ["depth", "pose"])
+def test_step_adam_update_matches_jax(steps, net):
+    params, stats, out = steps
+    old = _by_net(params, net)[0]
+
+    def update(tree):
+        return _by_net(tree, net)[0] - old
+
+    j16, j32 = update(out["bfloat16"]["new"]), update(out["float32"]["new"])
+    port = update(out["bfloat16"]["port_new"])
+    spans = _by_net(params, net)[1]
+    # the optimizer: JAX's Adam on the port's own gradient gives the port's
+    # new parameters within tests/test_torch_train.py's rule (from zero
+    # parameters there; here the sum rounds too, so one f32 ulp of the
+    # parameter on top)
+    jcfg = _jax_config("bfloat16", STEP_ITERS)
+    lr = jcfg.lr * (jcfg.pose_lr_mult if net == "pose" else 1.0)
+    state = _jax_train_state(params, stats, jcfg)
+    grads = jax.tree_util.tree_map(jnp.asarray,
+                                   out["bfloat16"]["port_grads"])
+    adam = _by_net(_tree(state.apply_gradients(grads=grads).params), net)[0]
+    ulp = np.spacing(np.abs(adam).astype(np.float32)).astype(np.float64)
+    adam_err = (np.abs(port + old - adam) - ulp).max() / lr
+    print(f"{net} net: the port's new parameters vs JAX's Adam on the "
+          f"port's gradient, beyond one f32 ulp of the parameter at most "
+          f"{adam_err:.3e} of the lr (limit {ADAM_TOL})")
+    assert adam_err <= ADAM_TOL
+    # the update against JAX's, on the elements whose sign JAX's bf16 and
+    # f32 steps share: the share of them whose sign the port's differs in
+    agree = (np.sign(j16) == np.sign(j32)) & (j16 != 0)
+    spread = max(_sign_flips(update(m["port_new"]), port, agree)
+                 for m in out["moved"])
+    limit = FRACTION * spread
+    flips = _sign_flips(port, j16, agree)
+    print(f"{net} net update, on the {agree.mean():.1%} of elements whose "
+          f"sign JAX's bf16 and f32 steps share: signs differ on "
+          f"{flips:.2%} (the port's one-ulp spread {spread:.2%}, limit "
+          f"{limit:.2%}; JAX's bf16 vs f32 differ on "
+          f"{_sign_flips(j16, j32, j16 != 0):.2%} of all); relative L2 "
+          f"{rel(port[agree], j16[agree]):.3f} (no update reads 1.0)")
+    assert flips <= limit
+    control = _sign_flips(_half_zeroed(port, spans), j16, agree)
+    print(f"{net} net update with half its leaves unchanged: signs differ "
+          f"on {control:.2%}")
+    assert limit < control < 1.0 and _sign_flips(0 * port, j16, agree) == 1
 
 
 @pytest.mark.parametrize("terms", ["defaults", "depth terms on"])
