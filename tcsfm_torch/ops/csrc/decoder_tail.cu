@@ -657,6 +657,152 @@ __device__ __forceinline__ void mma_bf16(float (&d)[4], uint4 a, uint32_t b0,
       : "r"(a.x), "r"(a.y), "r"(a.z), "r"(a.w), "r"(b0), "r"(b1));
 }
 
+// --- Hopper building blocks: ldmatrix, wgmma with A from registers ---
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// Four 8x8 bf16 matrices; lane l gives the shared address of row l % 8 of
+// matrix l / 8. As an A fragment of a 16x16 slice: matrix 0 rows 0-7 and
+// k 0-7, matrix 1 rows 8-15 and k 0-7, matrices 2, 3 the same at k 8-15.
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, "
+               "[%4];"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr)
+               : "memory");
+}
+
+// wgmma's shared-memory matrix descriptor, no swizzle: 8x16-byte core
+// matrices, `lbo` bytes apart along K and `sbo` bytes apart along N.
+__device__ __forceinline__ uint64_t wgmma_desc(uint32_t addr, uint32_t lbo,
+                                               uint32_t sbo) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)(lbo >> 4) << 16) |
+         ((uint64_t)(sbo >> 4) << 32);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
+}
+template <int kPending>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;" ::"n"(kPending) : "memory");
+}
+// Keeps the compiler from moving an accumulator's reads and writes across
+// the asynchronous wgmma that owns it (CUTLASS's warpgroup_fence_operand).
+template <int kN>
+__device__ __forceinline__ void fence_regs(float (&d)[kN]) {
+#pragma unroll
+  for (int i = 0; i < kN; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// D[64 x N] += A[64 x 16] B[16 x N]: bf16 in, f32 accumulators. A from
+// registers (warp w of the warpgroup holds rows 16w..16w+15 as an
+// mma.sync m16n8k16 A fragment), B through its descriptor (K-major). A
+// thread's accumulators: for each 8 columns j, (row g, col 8j + 2t, +1)
+// then (row g + 8, the same), g = lane / 4, t = lane % 4.
+__device__ __forceinline__ void wgmma_n32(float (&d)[16],
+                                          const uint32_t (&a)[4],
+                                          uint64_t desc_b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15}, {%16, %17, %18, %19}, %20, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1)
+      : "memory");
+}
+
+__device__ __forceinline__ void wgmma_n8(float (&d)[4], const uint32_t (&a)[4],
+                                         uint64_t desc_b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %9, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n8k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, %8, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1)
+      : "memory");
+}
+
+template <int kN>
+__device__ __forceinline__ void wgmma_bf16(float (&d)[kN / 2],
+                                           const uint32_t (&a)[4],
+                                           uint64_t desc_b) {
+  if constexpr (kN == 32) {
+    wgmma_n32(d, a, desc_b);
+  } else {
+    static_assert(kN == 8, "conv1's N = 32, conv2's N = 8");
+    wgmma_n8(d, a, desc_b);
+  }
+}
+
+// A conv's weights [cout, 32, 3, 3] (f32 OIHW) as wgmma B operands, rounded
+// to bf16: k-step s = 2 tap + half takes input channels 16 half .. + 15 at
+// that tap; its [16 x cout] slice lies at s * 32 cout bytes, K-major in
+// core matrices of 8 output channels x 8 input channels (16-byte rows),
+// kWgLbo apart along K and kWgSbo apart along N.
+constexpr int kWgLbo = 128, kWgSbo = 256;
+template <int kCout>
+__device__ __forceinline__ void stage_wgmma_b(unsigned char* dst,
+                                              const float* __restrict__ w,
+                                              int tid, int threads) {
+  for (int i = tid; i < kBfKSteps * kCout * 8; i += threads) {
+    const int kp = i & 7, co = (i >> 3) % kCout, s = i / (8 * kCout);
+    const int kk = 2 * kp, ci = (s & 1) * 16 + kk;
+    const float* wt = w + (co * kC1 + ci) * kTaps + (s >> 1);
+    *reinterpret_cast<uint32_t*>(dst + s * 32 * kCout + (co >> 3) * kWgSbo +
+                                 (kk >> 3) * kWgLbo + (co & 7) * 16 +
+                                 (kk & 7) * 2) =
+        pack_bf16(__ldg(wt), __ldg(wt + kTaps));
+  }
+}
+
+// The byte offset, within a row of 16 bytes that ldmatrix_x4 reads, of lane
+// l's row of a 16-row slice, and of its 8 channels: rows (l % 8) + 8 ((l /
+// 8) % 2), channels 8 (l / 16).
+__device__ __forceinline__ int ldm_row(int lane) {
+  return (lane & 7) + ((lane >> 3) & 1) * 8;
+}
+__device__ __forceinline__ int ldm_kbyte(int lane) { return (lane >> 4) * 16; }
+
+// The bf16 kernel's phase probe (ops/tail_probe.py --dtype bfloat16), as the
+// f32 kernel's: warp 0 of each block adds the clock cycles up to each mark
+// into tail_bf16_probe_cycles, kBfProbePhases of them (named in
+// tail_probe.PHASES_BF16).
+constexpr int kBfProbePhases = 12;
+#ifdef TCSFM_TAIL_PROBE
+__device__ unsigned long long tail_bf16_probe_cycles[kBfProbePhases];
+struct BfProbe {
+  long long last;
+  long long cycles[kBfProbePhases] = {};
+  __device__ BfProbe() { last = clock64(); }
+  __device__ void mark(int k) {
+    const long long now = clock64();
+    cycles[k] += now - last;
+    last = now;
+  }
+  __device__ void flush(int tid) {
+    if (tid != 0) return;
+    for (int k = 0; k < kBfProbePhases; ++k) {
+      atomicAdd(&tail_bf16_probe_cycles[k], (unsigned long long)cycles[k]);
+    }
+  }
+};
+#else
+struct BfProbe {
+  __device__ void mark(int) {}
+  __device__ void flush(int) {}
+};
+#endif
+
 // The weights once per block: conv1's [32, 32, 3, 3] as A fragments (k-step
 // s = tap * 2 + half; a lane's rows co g, g + 8 of its M-tile and columns
 // ci 16 half + 2t (+1), + 8), conv2's [8, 32, 3, 3] as B fragments (column
@@ -736,11 +882,15 @@ decoder_tail_bf16_kernel(const __nv_bfloat16* __restrict__ x,
   stage_bf16_weights(smem, w1, w2, w3, tid);
   const float bias3 = __ldg(b3);
 
+  BfProbe probe;
   for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
     const Tile tl = tile_at(tile, tiles_h, tiles_w);
     __syncthreads();    // the last tile's conv3 is done with f2
+    probe.mark(0);
     load_elu_x_bf16(xs, x, tl, H, W, tid);
+    probe.mark(1);
     __syncthreads();
+    probe.mark(2);
 
     // conv1: this warp's kNPer1 N-tiles of 8 f1 cells, both M-tiles
     int base[kNPer1];
@@ -768,7 +918,9 @@ decoder_tail_bf16_kernel(const __nv_bfloat16* __restrict__ x,
         mma_bf16(acc[ni][1], a_hi, b0, b1v);
       }
     }
+    probe.mark(3);
     __syncthreads();    // every warp is done reading elu(x)
+    probe.mark(4);
 #pragma unroll
     for (int ni = 0; ni < kNPer1; ++ni) {
 #pragma unroll
@@ -784,7 +936,9 @@ decoder_tail_bf16_kernel(const __nv_bfloat16* __restrict__ x,
         }
       }
     }
+    probe.mark(5);
     __syncthreads();
+    probe.mark(6);
 
     // conv2: this warp's M-tiles of 16 f2 cells, its 8 channels one N-tile
     const uint32_t* f1w = xs;
@@ -810,7 +964,9 @@ decoder_tail_bf16_kernel(const __nv_bfloat16* __restrict__ x,
         mma_bf16(acc2[mi], make_uint4(p0[0], p1[0], p0[4], p1[4]), b.x, b.y);
       }
     }
+    probe.mark(7);
     __syncthreads();    // every warp is done reading f1
+    probe.mark(8);
 #pragma unroll
     for (int mi = 0; mi < kMPer2; ++mi) {
 #pragma unroll
@@ -822,10 +978,97 @@ decoder_tail_bf16_kernel(const __nv_bfloat16* __restrict__ x,
         }
       }
     }
+    probe.mark(9);
     __syncthreads();
+    probe.mark(10);
     conv3_out(f2, w3s, bias3, out + (int64_t)tl.n * H * W, tl, H, W, tid);
+    probe.mark(11);
+  }
+  probe.flush(tid);
+}
+
+#ifdef TCSFM_TAIL_PROBE
+// The probe's checks of the wgmma building blocks (ops/tail_probe.py), one
+// warpgroup: d [64, kN] = a [64, 32] (bf16) times w[:, :, 0, 0]^T (kN of
+// OIHW f32 weights [kN, 32, 3, 3], rounded to bf16), with a's rows staged
+// kBfCellBytes apart, its fragments by ldmatrix_x4 and the weights in
+// stage_wgmma_b's layout: k-steps 0 and 1 (tap 0, both halves).
+template <int kN>
+__global__ void __launch_bounds__(128)
+    wgmma_check_kernel(const __nv_bfloat16* a, const float* w, float* d) {
+  __shared__ __align__(128) unsigned char sa[64 * 80];
+  __shared__ __align__(128) unsigned char sb[kBfKSteps * 32 * kN];
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  for (int i = tid; i < 64 * 32; i += 128) {
+    *reinterpret_cast<__nv_bfloat16*>(sa + (i >> 5) * 80 + (i & 31) * 2) =
+        a[i];
+  }
+  stage_wgmma_b<kN>(sb, w, tid, 128);
+  asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+  __syncthreads();
+  float acc[kN / 2] = {};
+  uint32_t f0[4], f1[4];
+  const uint32_t row =
+      smem_addr(sa) + (16 * warp + ldm_row(lane)) * 80 + ldm_kbyte(lane);
+  ldmatrix_x4(f0, row);
+  ldmatrix_x4(f1, row + 32);
+  const uint32_t b = smem_addr(sb);
+  wgmma_fence();
+  fence_regs(acc);
+  wgmma_bf16<kN>(acc, f0, wgmma_desc(b, kWgLbo, kWgSbo));
+  wgmma_bf16<kN>(acc, f1, wgmma_desc(b + 32 * kN, kWgLbo, kWgSbo));
+  wgmma_commit();
+  wgmma_wait<0>();
+  fence_regs(acc);
+  const int g = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int j = 0; j < kN / 8; ++j) {
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int m = 16 * warp + g + 8 * r;
+      d[m * kN + 8 * j + 2 * t] = acc[4 * j + 2 * r];
+      d[m * kN + 8 * j + 2 * t + 1] = acc[4 * j + 2 * r + 1];
+    }
   }
 }
+
+// The rate of wgmma m64nNk16 bf16 with A from registers: two warpgroups a
+// block, each with 4 independent accumulators (as the tail's conv1 keeps
+// several M-tiles in flight), 8 k-steps into each per commit group, one
+// group left in flight.
+template <int kN>
+__global__ void __launch_bounds__(256) wgmma_rate_kernel(float* out,
+                                                          int iters) {
+  __shared__ __align__(128) unsigned char sb[32 * kN];
+  for (int i = threadIdx.x; i < 8 * kN; i += 256) {
+    reinterpret_cast<uint32_t*>(sb)[i] = 0x3c003c00u;
+  }
+  asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+  __syncthreads();
+  const uint32_t a[4] = {0x3c003c00u, 0x3c003c00u, 0x3c003c00u, 0x3c003c00u};
+  float acc[4][kN / 2] = {};
+  const uint64_t desc = wgmma_desc(smem_addr(sb), kWgLbo, kWgSbo);
+  wgmma_fence();
+  for (int i = 0; i < iters; ++i) {
+#pragma unroll
+    for (int k = 0; k < 8; ++k) {
+#pragma unroll
+      for (int j = 0; j < 4; ++j) wgmma_bf16<kN>(acc[j], a, desc);
+    }
+    wgmma_commit();
+    wgmma_wait<1>();
+  }
+  wgmma_wait<0>();
+  float s = 0.0f;
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    fence_regs(acc[j]);
+#pragma unroll
+    for (int i = 0; i < kN / 2; ++i) s += acc[j][i];
+  }
+  out[blockIdx.x * blockDim.x + threadIdx.x] = s;
+}
+#endif
 
 }  // namespace
 
@@ -909,5 +1152,50 @@ extern "C" int tcsfm_decoder_tail_probe(unsigned long long* cycles,
   }
   return (int)cudaMemcpyFromSymbol(cycles, tail_probe_cycles,
                                    sizeof(tail_probe_cycles));
+}
+#endif
+
+#ifdef TCSFM_TAIL_PROBE
+// The bf16 kernel's probe cycles (reset first when `reset`),
+// kBfProbePhases of them.
+extern "C" int tcsfm_decoder_tail_bf16_probe(unsigned long long* cycles,
+                                             int reset) {
+  if (reset) {
+    const unsigned long long zero[kBfProbePhases] = {};
+    return (int)cudaMemcpyToSymbol(tail_bf16_probe_cycles, zero,
+                                   sizeof(zero));
+  }
+  return (int)cudaMemcpyFromSymbol(cycles, tail_bf16_probe_cycles,
+                                   sizeof(tail_bf16_probe_cycles));
+}
+
+// d [64, n] = a [64, 32] w[:, :, 0, 0]^T through wgmma_check_kernel, n 32
+// or 8.
+extern "C" int tcsfm_wgmma_check(const void* a, const float* w, float* d,
+                                 int n, void* stream) {
+  const auto* ab = static_cast<const __nv_bfloat16*>(a);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (n == 32) {
+    wgmma_check_kernel<32><<<1, 128, 0, st>>>(ab, w, d);
+  } else if (n == 8) {
+    wgmma_check_kernel<8><<<1, 128, 0, st>>>(ab, w, d);
+  } else {
+    return (int)cudaErrorInvalidValue;
+  }
+  return (int)cudaGetLastError();
+}
+
+// wgmma_rate_kernel<n> on `blocks` blocks of 256 threads, n 32 or 8.
+extern "C" int tcsfm_wgmma_rate(float* out, int n, int blocks, int iters,
+                                void* stream) {
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (n == 32) {
+    wgmma_rate_kernel<32><<<blocks, 256, 0, st>>>(out, iters);
+  } else if (n == 8) {
+    wgmma_rate_kernel<8><<<blocks, 256, 0, st>>>(out, iters);
+  } else {
+    return (int)cudaErrorInvalidValue;
+  }
+  return (int)cudaGetLastError();
 }
 #endif
