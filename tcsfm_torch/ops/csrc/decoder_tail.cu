@@ -93,6 +93,7 @@
 // stream on the given device (launch.cuh), allocates nothing, does not
 // synchronise; returns the first error of the setup calls or the launch.
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -614,31 +615,119 @@ decoder_tail_kernel(const float* __restrict__ x, const float* __restrict__ w1,
 // H100's 989 TFLOP/s of dense bf16; 142 MB of bf16 x read and 8.8 MB of
 // out written, 45 us at 3.35 TB/s.
 //
-// Design: the f32 kernel's tiling (12x32 tiles, base1/base2's reflected
-// cells, one persistent grid over the tiles), conv1 and conv2 on
-// mma.sync.m16n8k16 bf16 with f32 accumulation (one product a multiply-
-// add; conv1 takes the weights as A and the cells as B, conv2 the cells as
-// A and its weights as B, as above), K = 9 taps x 32 channels in 18
-// k-steps of 16. Activations are stored cell-major, a cell's 32 bf16
-// channels as 16 words (channel pairs) in a 20-word stride: a fragment's 8
-// cells x 4 pairs then fall on 32 banks. x is read with plain loads, two
-// channels a thread, and activated as it is stored; f1 is written over
-// elu(x) and f2 over f1, each behind a barrier (the accumulators are in
-// registers), so that a block needs 81 KB and two blocks share an SM.
-// No cp.async ring: that and wgmma/TMA are later work.
+// Design for Hopper. The first version (one mma.sync kernel, two blocks an
+// SM, 12x32 tiles, x by plain 2-byte loads, five block-wide barriers a
+// tile) spent 49.6% of warp 0's cycles loading x and taking its ELU, with
+// no load overlapping any compute, 32.7% in mma.sync, 9.1% and 3.1% in the
+// f1 and f2 epilogues and 4.4% in conv3 (ops/tail_probe.py --dtype
+// bfloat16, H100). Here one persistent block an SM walks over 16x32 output
+// tiles in a fixed stride, with two roles:
+// 1. A producer warp keeps x in flight ahead of the consumers: a ring of
+//    two stages, each 16 channels of the tile's 22x48 box of x (33,792
+//    bytes; rows r0-3 .., columns c0-8 ..), with a full and an empty
+//    mbarrier a stage. Where W % 8 == 0 (x's row stride a multiple of 16
+//    bytes) and x is 16-byte aligned, one thread fills a stage by TMA from
+//    a 3-D tensor map over [N*32, H, W] (cuTensorMapEncodeTiled, reached
+//    through the runtime's cudaGetDriverEntryPointByVersion: the library
+//    links no libcuda); other widths are copied by the warp's own loads.
+//    A TMA box's first column must lie on 16 bytes (on an H100 a box at
+//    column c0-3 raised an illegal instruction; rows and columns outside
+//    the image are allowed), hence c0-8 and the width of 48. TMA fills the
+//    box's cells outside the image with zeros, and no cell reads them: each
+//    cell below takes x at its reflected coordinate, which always lies in
+//    the box. While the consumers compute a tile, both stages of the next
+//    one arrive.
+// 2. Two consumer warpgroups (256 threads) turn each arrived stage into
+//    elu(x), cell-major bf16 (a cell's 32 channels in 64 bytes at an
+//    80-byte stride: 16-byte rows for ldmatrix, and 8 consecutive cells on
+//    8 distinct 16-byte bank groups), each cell at its reflected
+//    coordinate, and release the stage. They then run conv1 and conv2 as
+//    implicit GEMMs on wgmma (m64n32k16 and m64n8k16, bf16 into f32), the
+//    cells as M (64 rows a warpgroup instruction), the output channels as
+//    N, K = 9 taps x 32 channels in 18 k-steps of 16. A comes from
+//    registers, loaded by ldmatrix at per-lane cell addresses, so that a
+//    tap's shift and a border's reflection are only addresses (every cell
+//    of a buffer is computed at its reflected coordinate, as in the f32
+//    kernel); B, the weights, is staged once per block in wgmma's K-major
+//    core-matrix layout (stage_wgmma_b). conv1's f1 cells (20x36 = 720,
+//    padded to 12 M-tiles of 64) go 6 M-tiles to a warpgroup, conv2's f2
+//    cells (18x34 = 612, 10 M-tiles) 5; each warpgroup keeps its M-tiles'
+//    accumulators in registers over the whole K loop and loads the next
+//    k-step's fragments while the current k-step's wgmmas run. f1 and f2
+//    (8 channels in 16 bytes a cell) have buffers of their own, so a tile
+//    takes three named barriers of the 256 consumer threads (elu(x), f1,
+//    f2 complete) where the first version took five block-wide ones, and
+//    the producer waits on none of them. conv3 (8 -> 1) and the sigmoid
+//    stay on f32 FMAs, two output pixels a thread.
+// Halo recompute: conv1 at 768 cells for 512 outputs, conv2 at 640; 1.45x
+// the multiply-adds overall, as the 12x32 tiles were. A taller tile would
+// recompute less (24x32: 1.29x), but its ring, elu(x) and f1 need 250 KB
+// of the 227 KB a block has. Shared memory: 229,632 bytes, one block an SM.
+// The ELU below 0 is the fast exponential less 1: its result is rounded to
+// bf16, whose step (2^-9 relative) the exponential's ~2^-22 does not reach.
 
-constexpr int kBfWords = 20;                 // words a cell (16 + 4 pad)
-constexpr int kBfKSteps = kTaps * kC1 / 16;  // 18
-constexpr int kBfThreads = 256;
-constexpr int kBfSw1 = 0;                               // uint4 [18][2][32]
-constexpr int kBfSw2 = kBfSw1 + kBfKSteps * 2 * 32 * 4; // uint2 [18][32]
-constexpr int kBfSw3 = kBfSw2 + kBfKSteps * 32 * 2;     // f32 [8 * 9]
-constexpr int kBfSx = (kBfSw3 + kC2 * kTaps + 3) / 4 * 4;
-constexpr int kBfSmemWords = kBfSx + kH0 * kW0 * kBfWords;
-constexpr int kBfSmemBytes = kBfSmemWords * 4;
-static_assert(kCells1 <= kH0 * kW0 && kC2 * kP2 <= kCells1 * kBfWords,
-              "f1 and f2 fit over elu(x)");
-static_assert(kBfSmemBytes * 2 <= 232448, "two blocks an SM");
+constexpr int kBfTileH = 16;
+constexpr int kBfTileW = 32;
+#ifndef TCSFM_BF_WGS
+#define TCSFM_BF_WGS 2
+#endif
+#ifndef TCSFM_BF_PASSES1
+#define TCSFM_BF_PASSES1 1
+#endif
+#ifndef TCSFM_BF_CREGS
+#define TCSFM_BF_CREGS 232
+#endif
+constexpr int kBfWGs = TCSFM_BF_WGS;           // consumer warpgroups
+constexpr int kBfConsumers = 128 * kBfWGs;
+// and a producer warpgroup, of which one warp loads: a whole warpgroup, so
+// that it can give its registers to the consumers (setmaxnreg)
+constexpr int kBfThreads = kBfConsumers + 128;
+constexpr int kBfProducerRegs = 24;
+constexpr int kBfConsumerRegs = TCSFM_BF_CREGS;
+static_assert(128 * kBfProducerRegs + kBfConsumers * kBfConsumerRegs <= 65536,
+              "the register file");
+constexpr int kBfKSteps = kTaps * kC1 / 16;   // K = 288 in k-steps of 16
+constexpr int kBfStageC = 16;                 // channels of x a stage holds
+constexpr int kBfCellBytes = 80;              // 32 bf16 channels + 16 bytes
+// elu(x): the tile +-3, cells from (r0 - 3, c0 - 3); x's box: kBfXH rows
+// from r0 - 3, kBfBoxW columns from c0 - 8 (TMA's columns start and end on
+// 16 bytes); f1: the tile +-2; f2: the tile +-1
+constexpr int kBfXH = kBfTileH + 6, kBfXW = kBfTileW + 6, kBfBoxW = 48;
+constexpr int kBfF1H = kBfTileH + 4, kBfF1W = kBfTileW + 4;
+constexpr int kBfF2H = kBfTileH + 2, kBfF2W = kBfTileW + 2;
+constexpr int kBfCellsX = kBfXH * kBfXW;
+constexpr int kBfCells1 = kBfF1H * kBfF1W;
+constexpr int kBfCells2 = kBfF2H * kBfF2W;
+// M-tiles of 64 cells a warpgroup: conv1's (in kBfPasses1 passes), conv2's
+constexpr int kBfMt1 = (kBfCells1 + 64 * kBfWGs - 1) / (64 * kBfWGs);
+constexpr int kBfMt2 = (kBfCells2 + 64 * kBfWGs - 1) / (64 * kBfWGs);
+constexpr int kBfPasses1 = TCSFM_BF_PASSES1;
+constexpr int kBfPlane = kBfXH * kBfBoxW;         // a channel of the box
+constexpr int kBfStageBytes = kBfStageC * kBfPlane * 2;
+// shared memory, in bytes from a 128-byte aligned base: the ring, conv1's
+// and conv2's weights (stage_wgmma_b), elu(x), f1 (cell-major like elu(x),
+// padding rows included), f2 (16 bytes a cell), conv3's weights (f32), the
+// mbarriers (full and empty, a pair a stage)
+constexpr int kBfSRing = 0;
+constexpr int kBfSB1 = kBfSRing + 2 * kBfStageBytes;
+constexpr int kBfSB2 = kBfSB1 + kBfKSteps * 32 * kC1;
+constexpr int kBfSX = kBfSB2 + kBfKSteps * 32 * kC2;
+constexpr int kBfSF1 = kBfSX + kBfCellsX * kBfCellBytes;
+constexpr int kBfSF2 = kBfSF1 + kBfWGs * kBfMt1 * 64 * kBfCellBytes;
+constexpr int kBfSW3 = kBfSF2 + kBfWGs * kBfMt2 * 64 * 16;
+constexpr int kBfSBar = kBfSW3 + kC2 * kTaps * 4;
+constexpr int kBfSmemBytes = kBfSBar + 4 * 8 + 128;   // + the alignment
+static_assert(kBfSmemBytes <= 232448, "a block's shared memory on sm_90");
+static_assert(kBfStageBytes % 128 == 0 && kBfSB1 % 128 == 0 &&
+                  kBfSB2 % 128 == 0 && kBfSX % 16 == 0 && kBfSF1 % 16 == 0 &&
+                  kBfSF2 % 16 == 0 && kBfSW3 % 16 == 0 && kBfSBar % 8 == 0,
+              "TMA, ldmatrix and mbarrier alignment");
+static_assert(kBfXW + 5 <= kBfBoxW && kBfBoxW * 2 % 16 == 0 &&
+                  kBfTileW % 8 == 0,
+              "the box of x: columns c0 - 8 .., 16-byte aligned");
+static_assert(kBfWGs * kBfMt1 * 64 >= kBfCells1 &&
+                  kBfWGs * kBfMt2 * 64 >= kBfCells2 && kBfMt1 % kBfPasses1 == 0,
+              "M-tiles cover the cells");
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
@@ -649,15 +738,20 @@ __device__ __forceinline__ float round_bf16(float v) {
   return __bfloat162float(__float2bfloat16_rn(v));
 }
 
-__device__ __forceinline__ void mma_bf16(float (&d)[4], uint4 a, uint32_t b0,
-                                         uint32_t b1) {
-  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a.x), "r"(a.y), "r"(a.z), "r"(a.w), "r"(b0), "r"(b1));
+// 2^v, MUFU.EX2 without the denormal handling of exp2f/__expf (results below
+// 2^-126 flush to 0, which the ELU's -1 makes nothing of)
+__device__ __forceinline__ float ex2_ftz(float v) {
+  float r;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(r) : "f"(v));
+  return r;
 }
 
-// --- Hopper building blocks: ldmatrix, wgmma with A from registers ---
+__device__ __forceinline__ float elu_fast(float v) {
+  return v > 0.0f ? v : ex2_ftz(v * 1.4426950408889634f) - 1.0f;
+}
+
+// --- Hopper building blocks: ldmatrix, wgmma with A from registers, TMA,
+// mbarriers ---
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -673,6 +767,14 @@ __device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], uint32_t addr) {
                : "r"(addr)
                : "memory");
 }
+
+// Lane l's row of a 16-row slice that ldmatrix_x4 reads, and the byte
+// offset of its 8 channels: rows (l % 8) + 8 ((l / 8) % 2), channels 8 (l /
+// 16).
+__device__ __forceinline__ int ldm_row(int lane) {
+  return (lane & 7) + ((lane >> 3) & 1) * 8;
+}
+__device__ __forceinline__ int ldm_kbyte(int lane) { return (lane >> 4) * 16; }
 
 // wgmma's shared-memory matrix descriptor, no swizzle: 8x16-byte core
 // matrices, `lbo` bytes apart along K and `sbo` bytes apart along N.
@@ -765,19 +867,58 @@ __device__ __forceinline__ void stage_wgmma_b(unsigned char* dst,
   }
 }
 
-// The byte offset, within a row of 16 bytes that ldmatrix_x4 reads, of lane
-// l's row of a 16-row slice, and of its 8 channels: rows (l % 8) + 8 ((l /
-// 8) % 2), channels 8 (l / 16).
-__device__ __forceinline__ int ldm_row(int lane) {
-  return (lane & 7) + ((lane >> 3) & 1) * 8;
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(bar),
+               "r"(count)
+               : "memory");
 }
-__device__ __forceinline__ int ldm_kbyte(int lane) { return (lane >> 4) * 16; }
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(bar)
+               : "memory");
+}
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, int bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(
+                   bar),
+               "r"(bytes)
+               : "memory");
+}
+// Waits for the completion of the barrier's phase of this parity.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, int parity) {
+  uint32_t done = 0;
+  while (!done) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+  }
+}
+
+// A box of the 3-D tensor map at (column, row, plane) into shared memory,
+// completing on `bar` by its bytes.
+__device__ __forceinline__ void tma_load_3d(uint32_t dst, const CUtensorMap* map,
+                                            int c0, int c1, int c2,
+                                            uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%2, %3, %4}], [%5];" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2),
+      "r"(bar)
+      : "memory");
+}
+
+// The consumers' barrier (named barrier 1, the producer warp not in it).
+__device__ __forceinline__ void consumers_sync() {
+  asm volatile("bar.sync 1, %0;" ::"n"(kBfConsumers) : "memory");
+}
 
 // The bf16 kernel's phase probe (ops/tail_probe.py --dtype bfloat16), as the
 // f32 kernel's: warp 0 of each block adds the clock cycles up to each mark
 // into tail_bf16_probe_cycles, kBfProbePhases of them (named in
 // tail_probe.PHASES_BF16).
-constexpr int kBfProbePhases = 12;
+constexpr int kBfProbePhases = 10;
 #ifdef TCSFM_TAIL_PROBE
 __device__ unsigned long long tail_bf16_probe_cycles[kBfProbePhases];
 struct BfProbe {
@@ -803,62 +944,151 @@ struct BfProbe {
 };
 #endif
 
-// The weights once per block: conv1's [32, 32, 3, 3] as A fragments (k-step
-// s = tap * 2 + half; a lane's rows co g, g + 8 of its M-tile and columns
-// ci 16 half + 2t (+1), + 8), conv2's [8, 32, 3, 3] as B fragments (column
-// co g, rows ci 16 half + 2t (+1), + 8), conv3's [1, 8, 3, 3] rounded.
-__device__ __forceinline__ void stage_bf16_weights(
-    uint32_t* smem, const float* __restrict__ w1,
-    const float* __restrict__ w2, const float* __restrict__ w3, int tid) {
-  uint4* a1 = reinterpret_cast<uint4*>(smem + kBfSw1);
-  for (int i = tid; i < kBfKSteps * 2 * 32; i += kBfThreads) {
-    const int lane = i & 31, mt = (i >> 5) & 1, s = i >> 6;
-    const int co = mt * 16 + (lane >> 2);
-    const int ci = (s & 1) * 16 + 2 * (lane & 3);
-    const float* w = w1 + (co * kC1 + ci) * kTaps + (s >> 1);
-    constexpr int kCo8 = 8 * kC1 * kTaps;
-    a1[i] = make_uint4(
-        pack_bf16(__ldg(w), __ldg(w + kTaps)),
-        pack_bf16(__ldg(w + kCo8), __ldg(w + kCo8 + kTaps)),
-        pack_bf16(__ldg(w + 8 * kTaps), __ldg(w + 9 * kTaps)),
-        pack_bf16(__ldg(w + kCo8 + 8 * kTaps), __ldg(w + kCo8 + 9 * kTaps)));
-  }
-  uint2* b2 = reinterpret_cast<uint2*>(smem + kBfSw2);
-  for (int i = tid; i < kBfKSteps * 32; i += kBfThreads) {
-    const int lane = i & 31, s = i >> 5;
-    const int ci = (s & 1) * 16 + 2 * (lane & 3);
-    const float* w = w2 + ((lane >> 2) * kC1 + ci) * kTaps + (s >> 1);
-    b2[i] = make_uint2(pack_bf16(__ldg(w), __ldg(w + kTaps)),
-                       pack_bf16(__ldg(w + 8 * kTaps), __ldg(w + 9 * kTaps)));
-  }
-  float* w3s = reinterpret_cast<float*>(smem + kBfSw3);
-  for (int i = tid; i < kC2 * kTaps; i += kBfThreads) {
-    w3s[i] = round_bf16(__ldg(w3 + i));
+__device__ __forceinline__ Tile bf_tile_at(int t, int tiles_h, int tiles_w) {
+  const int per_image = tiles_h * tiles_w;
+  const int n = t / per_image;
+  const int rc = t - n * per_image;
+  const int r = rc / tiles_w;
+  return {n, r * kBfTileH, (rc - r * tiles_w) * kBfTileW};
+}
+
+// The producer's copy of a stage where TMA does not apply: channels
+// [16 half, 16 half + 16) of the tile's box of x, its in-image cells (the
+// others are never read), by the warp's 32 lanes.
+__device__ __forceinline__ void copy_box(__nv_bfloat16* dst,
+                                         const __nv_bfloat16* __restrict__ x,
+                                         Tile tl, int half, int H, int W,
+                                         int lane) {
+  const __nv_bfloat16* xc =
+      x + ((int64_t)tl.n * kC1 + half * kBfStageC) * H * W;
+  for (int i = lane; i < kBfStageC * kBfPlane; i += 32) {
+    const int ch = i / kBfPlane;
+    const int rc = i - ch * kBfPlane;
+    const int r = rc / kBfBoxW;
+    const int gr = tl.r0 - 3 + r, gc = tl.c0 - 8 + rc - r * kBfBoxW;
+    if (gr >= 0 && gr < H && gc >= 0 && gc < W) {
+      dst[i] = xc[((int64_t)ch * H + gr) * W + gc];
+    }
   }
 }
 
-// elu(x) over the tile's 18x40 region (cells at reflected coordinates, as
-// the f32 kernel's), two channels a thread, as packed bf16 words.
-__device__ __forceinline__ void load_elu_x_bf16(
-    uint32_t* xs, const __nv_bfloat16* __restrict__ x, Tile tl, int H, int W,
-    int tid) {
-  constexpr int kCells0 = kH0 * kW0;
-  const __nv_bfloat16* xn = x + (int64_t)tl.n * kC1 * H * W;
-  const int64_t plane = (int64_t)H * W;
-  for (int i = tid; i < kC1 / 2 * kCells0; i += kBfThreads) {
-    const int pair = i / kCells0;
-    const int cell = i - pair * kCells0;
-    const int r = cell / kW0;
-    const int gr = reflect(tl.r0 - 3 + r, H);
-    const int gc = reflect(tl.c0 - 4 + cell - r * kW0, W);
-    const __nv_bfloat16* p = xn + 2 * pair * plane + (int64_t)gr * W + gc;
-    xs[cell * kBfWords + pair] =
-        pack_bf16(elu(__bfloat162float(p[0])), elu(__bfloat162float(p[plane])));
+// elu(x) of one item of a stage into the cell-major buffer: item i (< 2
+// kBfCellsX) is channels 8 (i / kBfCellsX) .. + 7 of the stage's 16 at cell
+// i % kBfCellsX of the tile's elu(x) region, read from the box at the cell's
+// reflected coordinate (8 two-byte loads across the stage's planes) and
+// stored as one 16-byte piece of the cell.
+__device__ __forceinline__ void convert_item(unsigned char* xs,
+                                             const __nv_bfloat16* stage,
+                                             Tile tl, int half, int H, int W,
+                                             int i) {
+  const int g8 = i >= kBfCellsX;
+  const int cell = i - g8 * kBfCellsX;
+  const int r = cell / kBfXW, c = cell - r * kBfXW;
+  int rr = r, cc = c + 5;    // where the tile's elu(x) region is in the image
+  if (tl.r0 < 3 || tl.r0 + kBfTileH + 3 > H || tl.c0 < 3 ||
+      tl.c0 + kBfTileW + 3 > W) {
+    rr = reflect(tl.r0 - 3 + r, H) - (tl.r0 - 3);
+    cc = reflect(tl.c0 - 3 + c, W) - (tl.c0 - 8);
   }
+  const __nv_bfloat16* src = stage + 8 * g8 * kBfPlane + rr * kBfBoxW + cc;
+  float v[8];
+#pragma unroll
+  for (int k = 0; k < 8; ++k) {
+    v[k] = elu_fast(__bfloat162float(src[k * kBfPlane]));
+  }
+  *reinterpret_cast<uint4*>(xs + cell * kBfCellBytes + 32 * half + 16 * g8) =
+      make_uint4(pack_bf16(v[0], v[1]), pack_bf16(v[2], v[3]),
+                 pack_bf16(v[4], v[5]), pack_bf16(v[6], v[7]));
 }
 
-__global__ void __launch_bounds__(kBfThreads, 2)
-decoder_tail_bf16_kernel(const __nv_bfloat16* __restrict__ x,
+// sigmoid(conv3) at pixel p of the tile, if it lies in the image: f2's 3x3
+// cells around it (8 bf16 channels in 16 bytes a cell) by the bf16-rounded
+// weights w3s [ci][tap] in f32 FMAs.
+__device__ __forceinline__ void conv3_pixel(const unsigned char* f2,
+                                            const float (&w3s)[kC2 * kTaps],
+                                            float bias3,
+                                            float* __restrict__ out, Tile tl,
+                                            int H, int W, int p) {
+  const int i = p / kBfTileW, j = p - i * kBfTileW;
+  if (tl.r0 + i >= H || tl.c0 + j >= W) return;
+  float s = bias3;
+#pragma unroll
+  for (int tap = 0; tap < kTaps; ++tap) {
+    const uint4 v = *reinterpret_cast<const uint4*>(
+        f2 + ((i + tap / 3) * kBfF2W + j + tap % 3) * 16);
+    const uint32_t words[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      s = fmaf(__uint_as_float(words[k] << 16), w3s[2 * k * kTaps + tap], s);
+      s = fmaf(__uint_as_float(words[k] & 0xFFFF0000u),
+               w3s[(2 * k + 1) * kTaps + tap], s);
+    }
+  }
+  out[((int64_t)tl.n * H + tl.r0 + i) * W + tl.c0 + j] = sigmoid(s);
+}
+
+// The buffer cell, in elu(x), of the top-left tap of f1's cell m (computed
+// at its reflected coordinate; padding rows clamped to the last cell), and
+// the same in f1 for f2's cell m.
+__device__ __forceinline__ int bf_base1(int m, Tile tl, int H, int W) {
+  m = min(m, kBfCells1 - 1);
+  const int i = m / kBfF1W;
+  const int qr = reflect(tl.r0 - 2 + i, H) - (tl.r0 - 3);
+  const int qc = reflect(tl.c0 - 2 + m - i * kBfF1W, W) - (tl.c0 - 3);
+  return (qr - 1) * kBfXW + qc - 1;
+}
+
+__device__ __forceinline__ int bf_base2(int m, Tile tl, int H, int W) {
+  m = min(m, kBfCells2 - 1);
+  const int i = m / kBfF2W;
+  const int qr = reflect(tl.r0 - 1 + i, H) - (tl.r0 - 2);
+  const int qc = reflect(tl.c0 - 1 + m - i * kBfF2W, W) - (tl.c0 - 2);
+  return (qr - 1) * kBfF1W + qc - 1;
+}
+
+// A conv of this warpgroup's kMt M-tiles on wgmma: acc[j] += A B over the
+// 18 k-steps, A by ldmatrix_x4 at row[j] (the lane's row's top-left tap
+// cell and channel offset) plus the k-step's tap and channel offset in a
+// source kSrcW cells wide, B from desc_b (stage_wgmma_b's slices, 2 kN
+// 16-byte units apart). The next k-step's fragments load while this one's
+// wgmmas run: one commit group left in flight frees the other fragment set.
+template <int kN, int kMt, int kSrcW>
+__device__ __forceinline__ void conv_wgmma(float (&acc)[kMt][kN / 2],
+                                           const uint32_t (&row)[kMt],
+                                           uint64_t desc_b) {
+  uint32_t a[2][kMt][4];
+#pragma unroll
+  for (int j = 0; j < kMt; ++j) {
+    ldmatrix_x4(a[0][j], row[j]);
+    fence_regs(acc[j]);
+  }
+#pragma unroll
+  for (int s = 0; s < kBfKSteps; ++s) {
+    wgmma_fence();
+#pragma unroll
+    for (int j = 0; j < kMt; ++j) {
+      wgmma_bf16<kN>(acc[j], a[s & 1][j], desc_b + (uint64_t)(2 * kN * s));
+    }
+    wgmma_commit();
+    if (s + 1 < kBfKSteps) {
+      wgmma_wait<1>();
+      const int tap = (s + 1) >> 1;
+      const uint32_t off =
+          ((tap / 3) * kSrcW + tap % 3) * kBfCellBytes + ((s + 1) & 1) * 32;
+#pragma unroll
+      for (int j = 0; j < kMt; ++j) {
+        ldmatrix_x4(a[(s + 1) & 1][j], row[j] + off);
+      }
+    }
+  }
+  wgmma_wait<0>();
+#pragma unroll
+  for (int j = 0; j < kMt; ++j) fence_regs(acc[j]);
+}
+
+__global__ void __launch_bounds__(kBfThreads, 1)
+decoder_tail_bf16_kernel(const __grid_constant__ CUtensorMap x_map,
+                         const __nv_bfloat16* __restrict__ x,
                          const float* __restrict__ w1,
                          const float* __restrict__ b1,
                          const float* __restrict__ w2,
@@ -866,123 +1096,174 @@ decoder_tail_bf16_kernel(const __nv_bfloat16* __restrict__ x,
                          const float* __restrict__ w3,
                          const float* __restrict__ b3,
                          float* __restrict__ out, int H, int W, int tiles_h,
-                         int tiles_w, int tiles) {
-  extern __shared__ uint4 smem_bf[];
-  uint32_t* smem = reinterpret_cast<uint32_t*>(smem_bf);
+                         int tiles_w, int tiles, int tma) {
+  extern __shared__ __align__(128) unsigned char smem_bf_raw[];
+  unsigned char* sm =
+      smem_bf_raw + ((128 - (smem_addr(smem_bf_raw) & 127)) & 127);
   const int tid = threadIdx.x;
   const int lane = tid & 31, warp = tid >> 5;
-  const int g = lane >> 2, t = lane & 3;
-  const uint4* a1 = reinterpret_cast<const uint4*>(smem + kBfSw1);
-  const uint2* b2s = reinterpret_cast<const uint2*>(smem + kBfSw2);
-  const float* w3s = reinterpret_cast<const float*>(smem + kBfSw3);
-  uint32_t* xs = smem + kBfSx;
-  // f1 (bf16, cell-major like elu(x)) and f2 (f32 planes) over elu(x)
-  __nv_bfloat16* f1 = reinterpret_cast<__nv_bfloat16*>(xs);
-  float* f2 = reinterpret_cast<float*>(xs);
-  stage_bf16_weights(smem, w1, w2, w3, tid);
-  const float bias3 = __ldg(b3);
-
-  BfProbe probe;
-  for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
-    const Tile tl = tile_at(tile, tiles_h, tiles_w);
-    __syncthreads();    // the last tile's conv3 is done with f2
-    probe.mark(0);
-    load_elu_x_bf16(xs, x, tl, H, W, tid);
-    probe.mark(1);
-    __syncthreads();
-    probe.mark(2);
-
-    // conv1: this warp's kNPer1 N-tiles of 8 f1 cells, both M-tiles
-    int base[kNPer1];
-    float acc[kNPer1][2][4];
-#pragma unroll
-    for (int ni = 0; ni < kNPer1; ++ni) {
-      base[ni] = base1((warp * kNPer1 + ni) * 8 + g, tl, H, W);
-#pragma unroll
-      for (int mt = 0; mt < 2; ++mt) {
-        acc[ni][mt][0] = acc[ni][mt][1] = __ldg(b1 + mt * 16 + g);
-        acc[ni][mt][2] = acc[ni][mt][3] = __ldg(b1 + mt * 16 + g + 8);
-      }
+  const uint32_t bars = smem_addr(sm + kBfSBar);    // full 0, 1; empty 0, 1
+  if (tid == 0) {
+    for (int i = 0; i < 2; ++i) {
+      mbar_init(bars + 8 * i, tma ? 1 : 32);
+      mbar_init(bars + 16 + 8 * i, kBfConsumers);
     }
-#pragma unroll 1
-    for (int s = 0; s < kBfKSteps; ++s) {
-      const int tap = s >> 1;
-      const int off = ((tap / 3) * kW0 + tap % 3) * kBfWords + (s & 1) * 8 + t;
-      const uint4 a_lo = a1[(s * 2) * 32 + lane];
-      const uint4 a_hi = a1[(s * 2 + 1) * 32 + lane];
-#pragma unroll
-      for (int ni = 0; ni < kNPer1; ++ni) {
-        const uint32_t* p = xs + base[ni] * kBfWords + off;
-        const uint32_t b0 = p[0], b1v = p[4];
-        mma_bf16(acc[ni][0], a_lo, b0, b1v);
-        mma_bf16(acc[ni][1], a_hi, b0, b1v);
-      }
-    }
-    probe.mark(3);
-    __syncthreads();    // every warp is done reading elu(x)
-    probe.mark(4);
-#pragma unroll
-    for (int ni = 0; ni < kNPer1; ++ni) {
-#pragma unroll
-      for (int mt = 0; mt < 2; ++mt) {
-#pragma unroll
-        for (int r = 0; r < 2; ++r) {
-          const int co = mt * 16 + g + 8 * r;
-          const int m = (warp * kNPer1 + ni) * 8 + 2 * t;
-          f1[m * 2 * kBfWords + co] =
-              __float2bfloat16_rn(elu(acc[ni][mt][2 * r]));
-          f1[(m + 1) * 2 * kBfWords + co] =
-              __float2bfloat16_rn(elu(acc[ni][mt][2 * r + 1]));
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+
+  if (warp >= kBfConsumers / 32) {
+    // the producer warpgroup gives up registers; its first warp loads both
+    // halves of each of this block's tiles, in order
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;" ::"n"(kBfProducerRegs));
+    if (warp != kBfConsumers / 32) return;
+    int q = 0;
+    for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+      const Tile tl = bf_tile_at(tile, tiles_h, tiles_w);
+      for (int half = 0; half < 2; ++half, ++q) {
+        const int st = q & 1;
+        mbar_wait(bars + 16 + 8 * st, ((q >> 1) & 1) ^ 1);
+        unsigned char* dst = sm + kBfSRing + st * kBfStageBytes;
+        if (tma) {
+          if (lane == 0) {
+            mbar_expect_tx(bars + 8 * st, kBfStageBytes);
+            tma_load_3d(smem_addr(dst), &x_map, tl.c0 - 8, tl.r0 - 3,
+                        tl.n * kC1 + half * kBfStageC, bars + 8 * st);
+          }
+        } else {
+          copy_box(reinterpret_cast<__nv_bfloat16*>(dst), x, tl, half, H, W,
+                   lane);
+          mbar_arrive(bars + 8 * st);
         }
       }
     }
-    probe.mark(5);
-    __syncthreads();
-    probe.mark(6);
+    return;
+  }
 
-    // conv2: this warp's M-tiles of 16 f2 cells, its 8 channels one N-tile
-    const uint32_t* f1w = xs;
-    int cb[kMPer2][2];
-    float acc2[kMPer2][4];
-#pragma unroll
-    for (int mi = 0; mi < kMPer2; ++mi) {
-      const int m = (warp + mi * kWarps) * 16 + g;
-      cb[mi][0] = base2(m, tl, H, W) * kBfWords;
-      cb[mi][1] = base2(m + 8, tl, H, W) * kBfWords;
-      acc2[mi][0] = acc2[mi][2] = __ldg(b2 + 2 * t);
-      acc2[mi][1] = acc2[mi][3] = __ldg(b2 + 2 * t + 1);
+  // the consumers: warpgroup wg, its warp wl. They stage the weights while
+  // the producer's first loads are in flight
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;" ::"n"(kBfConsumerRegs));
+  stage_wgmma_b<kC1>(sm + kBfSB1, w1, tid, kBfConsumers);
+  stage_wgmma_b<kC2>(sm + kBfSB2, w2, tid, kBfConsumers);
+  float* w3s = reinterpret_cast<float*>(sm + kBfSW3);
+  for (int i = tid; i < kC2 * kTaps; i += kBfConsumers) {
+    w3s[i] = round_bf16(__ldg(w3 + i));
+  }
+  // the weights, written by this proxy, are read by wgmma's
+  asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+  consumers_sync();
+  const int wg = warp >> 2, wl = warp & 3;
+  const int g = lane >> 2, t = lane & 3;
+  unsigned char* xs = sm + kBfSX;
+  unsigned char* f1 = sm + kBfSF1;
+  unsigned char* f2 = sm + kBfSF2;
+  const uint64_t desc1 = wgmma_desc(smem_addr(sm + kBfSB1), kWgLbo, kWgSbo);
+  const uint64_t desc2 = wgmma_desc(smem_addr(sm + kBfSB2), kWgLbo, kWgSbo);
+  const float bias3 = __ldg(b3);
+  BfProbe probe;
+  int q = 0;    // stages consumed; the q-th lies in stage q % 2
+  for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+    const Tile tl = bf_tile_at(tile, tiles_h, tiles_w);
+    for (int half = 0; half < 2; ++half, ++q) {
+      mbar_wait(bars + 8 * (q & 1), (q >> 1) & 1);
+      probe.mark(0);
+      const __nv_bfloat16* stage = reinterpret_cast<const __nv_bfloat16*>(
+          sm + kBfSRing + (q & 1) * kBfStageBytes);
+#ifndef TCSFM_BF_CONV_UNROLL
+#define TCSFM_BF_CONV_UNROLL 1
+#endif
+      constexpr int kUnroll = TCSFM_BF_CONV_UNROLL;
+#pragma unroll kUnroll
+      for (int i = tid; i < 2 * kBfCellsX; i += kBfConsumers) {
+        convert_item(xs, stage, tl, half, H, W, i);
+      }
+      mbar_arrive(bars + 16 + 8 * (q & 1));
+      probe.mark(1);
     }
-#pragma unroll 1
-    for (int s = 0; s < kBfKSteps; ++s) {
-      const int tap = s >> 1;
-      const int off = ((tap / 3) * kW1 + tap % 3) * kBfWords + (s & 1) * 8 + t;
-      const uint2 b = b2s[s * 32 + lane];
+    consumers_sync();    // elu(x) complete
+    probe.mark(2);
+
+    // conv1: M-tiles kBfMt1 wg .. + kBfMt1 - 1 of f1's cells, in passes
 #pragma unroll
-      for (int mi = 0; mi < kMPer2; ++mi) {
-        const uint32_t* p0 = f1w + cb[mi][0] + off;
-        const uint32_t* p1 = f1w + cb[mi][1] + off;
-        mma_bf16(acc2[mi], make_uint4(p0[0], p1[0], p0[4], p1[4]), b.x, b.y);
+    for (int pass = 0; pass < kBfPasses1; ++pass) {
+      constexpr int kMt = kBfMt1 / kBfPasses1;
+      const int mt0 = kBfMt1 * wg + kMt * pass;
+      float acc[kMt][16];
+      uint32_t row[kMt];
+#pragma unroll
+      for (int j = 0; j < kMt; ++j) {
+        const int m = (mt0 + j) * 64 + 16 * wl + ldm_row(lane);
+        row[j] = smem_addr(xs) + bf_base1(m, tl, H, W) * kBfCellBytes +
+                 ldm_kbyte(lane);
+#pragma unroll
+        for (int n8 = 0; n8 < 4; ++n8) {
+          acc[j][4 * n8] = acc[j][4 * n8 + 2] = __ldg(b1 + 8 * n8 + 2 * t);
+          acc[j][4 * n8 + 1] = acc[j][4 * n8 + 3] =
+              __ldg(b1 + 8 * n8 + 2 * t + 1);
+        }
+      }
+      conv_wgmma<kC1, kMt, kBfXW>(acc, row, desc1);
+      probe.mark(3);
+#pragma unroll
+      for (int j = 0; j < kMt; ++j) {
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          const int m = (mt0 + j) * 64 + 16 * wl + g + 8 * r;
+          uint32_t* cell = reinterpret_cast<uint32_t*>(f1 + m * kBfCellBytes);
+#pragma unroll
+          for (int n8 = 0; n8 < 4; ++n8) {
+            cell[4 * n8 + t] = pack_bf16(elu_fast(acc[j][4 * n8 + 2 * r]),
+                                         elu_fast(acc[j][4 * n8 + 2 * r + 1]));
+          }
+        }
+      }
+      probe.mark(4);
+    }
+    consumers_sync();    // f1 complete
+    probe.mark(5);
+
+    // conv2: M-tiles kBfMt2 wg .. + kBfMt2 - 1 of f2's cells
+    {
+      float acc[kBfMt2][4];
+      uint32_t row[kBfMt2];
+#pragma unroll
+      for (int j = 0; j < kBfMt2; ++j) {
+        const int m = (kBfMt2 * wg + j) * 64 + 16 * wl + ldm_row(lane);
+        row[j] = smem_addr(f1) + bf_base2(m, tl, H, W) * kBfCellBytes +
+                 ldm_kbyte(lane);
+        acc[j][0] = acc[j][2] = __ldg(b2 + 2 * t);
+        acc[j][1] = acc[j][3] = __ldg(b2 + 2 * t + 1);
+      }
+      conv_wgmma<kC2, kBfMt2, kBfF1W>(acc, row, desc2);
+      probe.mark(6);
+#pragma unroll
+      for (int j = 0; j < kBfMt2; ++j) {
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          const int m = (kBfMt2 * wg + j) * 64 + 16 * wl + g + 8 * r;
+          reinterpret_cast<uint32_t*>(f2 + m * 16)[t] = pack_bf16(
+              elu_fast(acc[j][2 * r]), elu_fast(acc[j][2 * r + 1]));
+        }
       }
     }
     probe.mark(7);
-    __syncthreads();    // every warp is done reading f1
+    consumers_sync();    // f2 complete
     probe.mark(8);
+    {
+      float w3r[kC2 * kTaps];
 #pragma unroll
-    for (int mi = 0; mi < kMPer2; ++mi) {
-#pragma unroll
-      for (int r = 0; r < 2; ++r) {
-        const int m = (warp + mi * kWarps) * 16 + g + 8 * r;
-        if (m < kCells2) {
-          f2[2 * t * kP2 + m] = round_bf16(elu(acc2[mi][2 * r]));
-          f2[(2 * t + 1) * kP2 + m] = round_bf16(elu(acc2[mi][2 * r + 1]));
-        }
+      for (int i = 0; i < kC2 * kTaps / 4; ++i) {
+        const float4 v = reinterpret_cast<const float4*>(w3s)[i];
+        w3r[4 * i] = v.x;
+        w3r[4 * i + 1] = v.y;
+        w3r[4 * i + 2] = v.z;
+        w3r[4 * i + 3] = v.w;
+      }
+      for (int p = tid; p < kBfTileH * kBfTileW; p += kBfConsumers) {
+        conv3_pixel(f2, w3r, bias3, out, tl, H, W, p);
       }
     }
     probe.mark(9);
-    __syncthreads();
-    probe.mark(10);
-    conv3_out(f2, w3s, bias3, out + (int64_t)tl.n * H * W, tl, H, W, tid);
-    probe.mark(11);
   }
   probe.flush(tid);
 }
@@ -1033,19 +1314,26 @@ __global__ void __launch_bounds__(128)
 }
 
 // The rate of wgmma m64nNk16 bf16 with A from registers: two warpgroups a
-// block, each with 4 independent accumulators (as the tail's conv1 keeps
+// block, each with 4 independent accumulators (as the tail's convs keep
 // several M-tiles in flight), 8 k-steps into each per commit group, one
-// group left in flight.
+// group left in flight. A is loaded by ldmatrix_x4, as in the kernel (A
+// registers that the compiler rematerializes from constants make ptxas
+// serialize the wgmmas).
 template <int kN>
 __global__ void __launch_bounds__(256) wgmma_rate_kernel(float* out,
                                                           int iters) {
   __shared__ __align__(128) unsigned char sb[32 * kN];
+  __shared__ __align__(128) uint32_t sa[64 * 8];
   for (int i = threadIdx.x; i < 8 * kN; i += 256) {
     reinterpret_cast<uint32_t*>(sb)[i] = 0x3c003c00u;
   }
+  for (int i = threadIdx.x; i < 64 * 8; i += 256) sa[i] = 0x3c003c00u;
   asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
   __syncthreads();
-  const uint32_t a[4] = {0x3c003c00u, 0x3c003c00u, 0x3c003c00u, 0x3c003c00u};
+  const int lane = threadIdx.x & 31, warp = (threadIdx.x >> 5) & 3;
+  uint32_t a[4];
+  ldmatrix_x4(a, smem_addr(sa) + (16 * warp + ldm_row(lane)) * 32 +
+                     ldm_kbyte(lane));
   float acc[4][kN / 2] = {};
   const uint64_t desc = wgmma_desc(smem_addr(sb), kWgLbo, kWgSbo);
   wgmma_fence();
@@ -1069,6 +1357,49 @@ __global__ void __launch_bounds__(256) wgmma_rate_kernel(float* out,
   out[blockIdx.x * blockDim.x + threadIdx.x] = s;
 }
 #endif
+
+// cuTensorMapEncodeTiled's signature (CUDA 12.0), reached through the
+// runtime's cudaGetDriverEntryPoint: the library links no libcuda.
+typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType,
+                                  cuuint32_t, void*, const cuuint64_t*,
+                                  const cuuint64_t*, const cuuint32_t*,
+                                  const cuuint32_t*, CUtensorMapInterleave,
+                                  CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                  CUtensorMapFloatOOBfill);
+
+// x's tensor map for the bf16 kernel: [N * 32, H, W] bf16 (W % 8 == 0, x
+// 16-byte aligned), boxes of kBfStageC planes x kBfXH rows x kBfBoxW
+// columns, cells outside the tensor read as zeros.
+cudaError_t bf16_x_map(CUtensorMap* map, const void* x, int N, int H, int W) {
+  static EncodeTiledFn encode = nullptr;
+  if (encode == nullptr) {
+    void* fn = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &fn, 12000, cudaEnableDefault, &found);
+#else
+    const cudaError_t err = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &fn, cudaEnableDefault, &found);
+#endif
+    if (err != cudaSuccess) return err;
+    if (found != cudaDriverEntryPointSuccess || fn == nullptr) {
+      return cudaErrorNotSupported;
+    }
+    encode = reinterpret_cast<EncodeTiledFn>(fn);
+  }
+  const cuuint64_t dims[3] = {(cuuint64_t)W, (cuuint64_t)H,
+                              (cuuint64_t)N * kC1};
+  const cuuint64_t strides[2] = {(cuuint64_t)W * 2, (cuuint64_t)H * W * 2};
+  const cuuint32_t box[3] = {kBfBoxW, kBfXH, kBfStageC};
+  const cuuint32_t steps[3] = {1, 1, 1};
+  const CUresult r = encode(
+      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(x), dims,
+      strides, box, steps, CU_TENSOR_MAP_INTERLEAVE_NONE,
+      CU_TENSOR_MAP_SWIZZLE_NONE, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
 
 }  // namespace
 
@@ -1106,9 +1437,10 @@ extern "C" int tcsfm_decoder_tail_fwd(const float* x, const float* w1,
       aligned);
   return (int)cudaGetLastError();
 }
-
 // The bfloat16 tail: x bf16 [N, 32, H, W]; the weights and biases f32 (as
 // the f32 entry point's); out f32 [N, H, W, 1]; all contiguous. H, W >= 2.
+// x arrives by TMA where W % 8 == 0 and x is 16-byte aligned, else by the
+// kernel's own loads; a tensor map that cannot be made returns its error.
 extern "C" int tcsfm_decoder_tail_bf16_fwd(const void* x, const float* w1,
                                            const float* b1, const float* w2,
                                            const float* b2, const float* w3,
@@ -1129,16 +1461,24 @@ extern "C" int tcsfm_decoder_tail_bf16_fwd(const void* x, const float* w1,
       &per_sm, decoder_tail_bf16_kernel, kBfThreads, kBfSmemBytes);
   if (err != cudaSuccess) return (int)err;
   if (per_sm < 1) return (int)cudaErrorInvalidConfiguration;
-  const int tiles_h = (H + kTileH - 1) / kTileH;
-  const int tiles_w = (W + kTileW - 1) / kTileW;
+  const int tiles_h = (H + kBfTileH - 1) / kBfTileH;
+  const int tiles_w = (W + kBfTileW - 1) / kBfTileW;
   const int64_t tiles = (int64_t)N * tiles_h * tiles_w;
-  if (tiles > INT32_MAX) return (int)cudaErrorInvalidValue;
+  if (tiles > INT32_MAX || (int64_t)N * kC1 > INT32_MAX) {
+    return (int)cudaErrorInvalidValue;
+  }
   const int64_t grid = tiles < (int64_t)sms * per_sm ? tiles
                                                       : (int64_t)sms * per_sm;
+  CUtensorMap map{};
+  const int tma = W % 8 == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0;
+  if (tma) {
+    err = bf16_x_map(&map, x, N, H, W);
+    if (err != cudaSuccess) return (int)err;
+  }
   decoder_tail_bf16_kernel<<<(unsigned)grid, kBfThreads, kBfSmemBytes,
                              static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const __nv_bfloat16*>(x), w1, b1, w2, b2, w3, b3, out, H,
-      W, tiles_h, tiles_w, (int)tiles);
+      map, static_cast<const __nv_bfloat16*>(x), w1, b1, w2, b2, w3, b3, out,
+      H, W, tiles_h, tiles_w, (int)tiles, tma);
   return (int)cudaGetLastError();
 }
 

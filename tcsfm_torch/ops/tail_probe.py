@@ -32,11 +32,10 @@ from tcsfm_torch.ops import decoder_tail as dt
 PHASES = ("wait for a chunk + ELU", "barrier + next copy", "conv1 MMAs",
           "f1 epilogue", "conv2", "conv3")
 # the bf16 kernel's marks (BfProbe in csrc/decoder_tail.cu)
-PHASES_BF16 = ("barrier before the load", "load x + ELU",
-               "barrier after the load", "conv1 MMAs", "barrier after conv1",
-               "f1 epilogue", "barrier after f1", "conv2 MMAs",
-               "barrier after conv2", "f2 epilogue", "barrier after f2",
-               "conv3 + store")
+PHASES_BF16 = ("wait for x (full mbarrier)", "ELU into cell-major",
+               "barrier: elu(x) complete", "conv1 wgmma", "f1 epilogue",
+               "barrier: f1 complete", "conv2 wgmma", "f2 epilogue",
+               "barrier: f2 complete", "conv3 + store")
 SHAPE = (18, 32, 192, 640)
 MMA_ITERS = 20000
 WGMMA_ITERS = 4000

@@ -523,12 +523,17 @@ def test_make_tail_apply_on_card(cuda):
 
 @pytest.mark.parametrize("shape", [(1, 32, 5, 7), (2, 32, 37, 50),
                                    (2, 32, 19, 38), (1, 32, 4, 4),
-                                   (7, 32, 100, 200)])
+                                   (7, 32, 100, 200), (1, 32, 17, 33),
+                                   (2, 32, 33, 65), (2, 32, 40, 72),
+                                   (1, 32, 24, 48), (1, 32, 9, 8)])
 def test_decoder_tail_bf16_kernel_matches_plain(cuda, shape):
     """The bf16 tail kernel against ``decoder_tail_plain_bf16`` at the f32
-    kernel's border cases, on the f32 disparity: within
-    ``chip_smoke.TAIL_BF16_TOL`` (bf16 rounding flips of elu(x), f1 and f2
-    under another f32 summation order); one bf16 launch, no f32 one."""
+    kernel's border cases and the bf16 kernel's own (16x32 tiles: H and W
+    one past a multiple of the tile; W % 8 == 0, x by TMA, with tiles cut
+    at the bottom and right borders; a single column of tiles narrower than
+    a TMA box), on the f32 disparity: within ``chip_smoke.TAIL_BF16_TOL``
+    (bf16 rounding flips of elu(x), f1 and f2 under another f32 summation
+    order); one bf16 launch, no f32 one."""
     import chip_smoke
 
     x, ws = _tail_inputs(shape, 13, cuda)
@@ -541,6 +546,27 @@ def test_decoder_tail_bf16_kernel_matches_plain(cuda, shape):
     n, _, h, w = shape
     assert out.dtype == torch.float32 and out.shape == (n, h, w, 1)
     assert (out - ref).abs().max().item() <= chip_smoke.TAIL_BF16_TOL
+
+
+@pytest.mark.parametrize("shape", [(1, 32, 24, 40), (2, 32, 192, 640)])
+def test_decoder_tail_bf16_kernel_misaligned_x(cuda, shape):
+    """x contiguous but not 16-byte aligned (a view one element into its
+    storage), W % 8 == 0: the bf16 kernel copies x with its own loads
+    instead of TMA, and agrees with ``decoder_tail_plain_bf16`` within
+    ``chip_smoke.TAIL_BF16_TOL`` as the aligned x does."""
+    import chip_smoke
+
+    x, ws = _tail_inputs(shape, 17, cuda)
+    store = torch.empty(x.numel() + 1, dtype=torch.bfloat16, device=cuda)
+    moved = store[1:].view(shape)
+    moved.copy_(x)
+    assert moved.is_contiguous() and moved.data_ptr() % 16 != 0
+    out = dt.decoder_tail(moved, *ws)
+    aligned = dt.decoder_tail(moved.clone(), *ws)
+    ref = dt.decoder_tail_plain_bf16(moved, *ws)
+    torch.cuda.synchronize()
+    assert (out - ref).abs().max().item() <= chip_smoke.TAIL_BF16_TOL
+    assert (aligned - ref).abs().max().item() <= chip_smoke.TAIL_BF16_TOL
 
 
 def test_bf16_nets_on_card(cuda):

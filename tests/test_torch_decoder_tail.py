@@ -581,3 +581,78 @@ def test_kernel_tiling_emulation_matches_plain(shape, grid):
     x, ws = _tail_inputs(shape, sum(shape))
     out = _emulate_kernel(x, *ws, grid)
     assert (out - dt.decoder_tail_plain(x, *ws)).abs().max().item() <= 1e-6
+
+
+def _emulate_bf16_kernel(x, w1, b1, w2, b2, w3, b3, grid):
+    """The bf16 kernel's tiling (``decoder_tail_bf16_kernel``) in plain
+    PyTorch, in float32: ``grid`` persistent blocks take tiles in a fixed
+    stride; per tile, x's box (rows r0-3.., columns c0-8.., ``kBfBoxW``
+    wide: TMA's columns start on 16 bytes) as the producer fills it, its
+    cells outside the image NaN (TMA's zeros, or left unwritten: no cell
+    may read them); elu(x) at each cell's reflected coordinate inside the
+    box; conv1 over f1's cells and conv2
+    over f2's, each in M-tiles of 64 rows over two warpgroups (padding rows
+    clamped to the last cell), each cell from its taps' offsets in the
+    buffer before; conv3 at the in-image pixels. Checks that every read
+    falls inside its buffer and every output pixel is written once."""
+    k = _kernel_constants()
+    th, tw, bw = k["kBfTileH"], k["kBfTileW"], k["kBfBoxW"]
+    xh, xw, f1h, f1w, f2h, f2w = th + 6, tw + 6, th + 4, tw + 4, th + 2, tw + 2
+    n, _, hgt, wid = x.shape
+    tiles_h, tiles_w = -(-hgt // th), -(-wid // tw)
+    out = torch.full((n, hgt, wid), float("nan"))
+    for block in range(grid):
+        for tile in range(block, n * tiles_h * tiles_w, grid):
+            img, rc = divmod(tile, tiles_h * tiles_w)
+            r0, c0 = rc // tiles_w * th, rc % tiles_w * tw
+            rb, cb = r0 - 3, c0 - 8
+            assert cb % 8 == 0 and bw % 8 == 0 and xw + 5 <= bw
+            rows = torch.arange(rb, rb + xh)
+            cols = torch.arange(cb, cb + bw)
+            inside = (((rows >= 0) & (rows < hgt))[:, None]
+                      & ((cols >= 0) & (cols < wid))[None])
+            box = torch.full((C1, xh, bw), float("nan"))
+            box[:, inside] = x[img][:, rows.clamp(0, hgt - 1)][
+                :, :, cols.clamp(0, wid - 1)][:, inside]
+            rr = _reflect(torch.arange(r0 - 3, r0 - 3 + xh), hgt) - rb
+            cc = _reflect(torch.arange(c0 - 3, c0 - 3 + xw), wid) - cb
+            assert rr.min() >= 0 and rr.max() < xh
+            assert cc.min() >= 0 and cc.max() < bw
+            f0 = F.elu(box[:, rr][:, :, cc]).reshape(C1, -1)
+            assert not torch.isnan(f0).any()
+            m = torch.arange(-(-f1h * f1w // 128) * 128).clamp(
+                max=f1h * f1w - 1)
+            qr = _reflect(r0 - 2 + m // f1w, hgt) - (r0 - 3)
+            qc = _reflect(c0 - 2 + m % f1w, wid) - (c0 - 3)
+            assert qr.min() >= 1 and qr.max() <= xh - 2
+            assert qc.min() >= 1 and qc.max() <= xw - 2
+            f1 = _implicit_gemm(f0, (qr - 1) * xw + qc - 1, xw, w1, b1)
+            m = torch.arange(-(-f2h * f2w // 128) * 128).clamp(
+                max=f2h * f2w - 1)
+            qr = _reflect(r0 - 1 + m // f2w, hgt) - (r0 - 2)
+            qc = _reflect(c0 - 1 + m % f2w, wid) - (c0 - 2)
+            assert qr.min() >= 1 and qr.max() <= f1h - 2
+            assert qc.min() >= 1 and qc.max() <= f1w - 2
+            f2 = _implicit_gemm(f1.t(), (qr - 1) * f1w + qc - 1, f1w, w2,
+                                b2)[:f2h * f2w]
+            y = torch.sigmoid(F.conv2d(f2.t().reshape(1, C2, f2h, f2w), w3,
+                                       b3))[0, 0]
+            hh, ww = min(th, hgt - r0), min(tw, wid - c0)
+            assert torch.isnan(out[img, r0:r0 + hh, c0:c0 + ww]).all()
+            out[img, r0:r0 + hh, c0:c0 + ww] = y[:hh, :ww]
+    assert not torch.isnan(out).any()
+    return out[..., None]
+
+
+@pytest.mark.parametrize("shape,grid", [
+    ((1, C1, 4, 4), 1),         # the minimum, one tile cut on all sides
+    ((1, C1, 5, 7), 2),         # smaller than a tile; more blocks than tiles
+    ((1, C1, 17, 33), 3),       # one past a tile in H and W
+    ((2, C1, 40, 72), 4),       # W % 8 == 0 (TMA), tiles cut at both borders
+    ((1, C1, 24, 48), 2)])      # TMA, boxes out of the image on all sides
+def test_bf16_kernel_tiling_emulation_matches_plain(shape, grid):
+    """The bf16 kernel's tiling, emulated in float32, within 1e-6 of the
+    plain tail (the bf16 roundings left out: this checks the geometry)."""
+    x, ws = _tail_inputs(shape, sum(shape))
+    out = _emulate_bf16_kernel(x, *ws, grid)
+    assert (out - dt.decoder_tail_plain(x, *ws)).abs().max().item() <= 1e-6
