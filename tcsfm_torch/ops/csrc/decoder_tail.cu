@@ -668,66 +668,63 @@ decoder_tail_kernel(const float* __restrict__ x, const float* __restrict__ w1,
 
 constexpr int kBfTileH = 16;
 constexpr int kBfTileW = 32;
-#ifndef TCSFM_BF_WGS
-#define TCSFM_BF_WGS 2
-#endif
-#ifndef TCSFM_BF_PASSES1
-#define TCSFM_BF_PASSES1 1
-#endif
-#ifndef TCSFM_BF_CREGS
-#define TCSFM_BF_CREGS 232
-#endif
-constexpr int kBfWGs = TCSFM_BF_WGS;           // consumer warpgroups
-constexpr int kBfConsumers = 128 * kBfWGs;
+constexpr int kBfConsumers = 256;              // two warpgroups
 // and a producer warpgroup, of which one warp loads: a whole warpgroup, so
 // that it can give its registers to the consumers (setmaxnreg)
 constexpr int kBfThreads = kBfConsumers + 128;
 constexpr int kBfProducerRegs = 24;
-constexpr int kBfConsumerRegs = TCSFM_BF_CREGS;
+constexpr int kBfConsumerRegs = 240;
 static_assert(128 * kBfProducerRegs + kBfConsumers * kBfConsumerRegs <= 65536,
               "the register file");
 constexpr int kBfKSteps = kTaps * kC1 / 16;   // K = 288 in k-steps of 16
 constexpr int kBfStageC = 16;                 // channels of x a stage holds
-constexpr int kBfCellBytes = 80;              // 32 bf16 channels + 16 bytes
-// elu(x): the tile +-3, cells from (r0 - 3, c0 - 3); x's box: kBfXH rows
-// from r0 - 3, kBfBoxW columns from c0 - 8 (TMA's columns start and end on
-// 16 bytes); f1: the tile +-2; f2: the tile +-1
-constexpr int kBfXH = kBfTileH + 6, kBfXW = kBfTileW + 6, kBfBoxW = 48;
-constexpr int kBfF1H = kBfTileH + 4, kBfF1W = kBfTileW + 4;
-constexpr int kBfF2H = kBfTileH + 2, kBfF2W = kBfTileW + 2;
-constexpr int kBfCellsX = kBfXH * kBfXW;
-constexpr int kBfCells1 = kBfF1H * kBfF1W;
-constexpr int kBfCells2 = kBfF2H * kBfF2W;
-// M-tiles of 64 cells a warpgroup: conv1's (in kBfPasses1 passes), conv2's
-constexpr int kBfMt1 = (kBfCells1 + 64 * kBfWGs - 1) / (64 * kBfWGs);
-constexpr int kBfMt2 = (kBfCells2 + 64 * kBfWGs - 1) / (64 * kBfWGs);
-constexpr int kBfPasses1 = TCSFM_BF_PASSES1;
+// elu(x), f1 and f2 lie on one grid kBfGW positions wide: position
+// i kBfGW + j is (image row, column) (r0 - 3 + i, c0 - 3 + j) of elu(x),
+// (r0 - 2 + i, c0 - 2 + j) of f1 and (r0 - 1 + i, c0 - 1 + j) of f2, so
+// that a conv's tap (dy, dx) is the shift dy kBfGW + dx for every position.
+// Each is stored by 8-channel groups, a position's group in 16 bytes.
+constexpr int kBfGW = kBfTileW + 6;
+constexpr int kBfXH = kBfTileH + 6, kBfF1H = kBfTileH + 4,
+              kBfF2H = kBfTileH + 2;
+constexpr int kBfCellsX = kBfXH * kBfGW;
+// positions a warpgroup computes of conv1 and of conv2, in M-tiles of 64
+constexpr int kBfMt1 = (kBfF1H * kBfGW + 127) / 128;
+constexpr int kBfMt2 = (kBfF2H * kBfGW + 127) / 128;
+constexpr int kBfGroupX = kBfCellsX * 16;        // bytes of a group
+constexpr int kBfGroup1 = 128 * kBfMt1 * 16;
+// x's box: kBfXH rows from r0 - 3, kBfBoxW columns from c0 - 8 (TMA's
+// columns start and end on 16 bytes)
+constexpr int kBfBoxW = 48;
 constexpr int kBfPlane = kBfXH * kBfBoxW;         // a channel of the box
 constexpr int kBfStageBytes = kBfStageC * kBfPlane * 2;
 // shared memory, in bytes from a 128-byte aligned base: the ring, conv1's
-// and conv2's weights (stage_wgmma_b), elu(x), f1 (cell-major like elu(x),
-// padding rows included), f2 (16 bytes a cell), conv3's weights (f32), the
-// mbarriers (full and empty, a pair a stage)
+// and conv2's weights (stage_wgmma_b), elu(x) (4 groups), f1 (4 groups),
+// f2 (one group), conv3's weights (f32), the mbarriers (full and empty, a
+// pair a stage). A conv's last M-tile reads past its source by up to
+// 2 kBfGW + 2 + 10 positions, into the next buffer, for positions no
+// output takes.
 constexpr int kBfSRing = 0;
 constexpr int kBfSB1 = kBfSRing + 2 * kBfStageBytes;
 constexpr int kBfSB2 = kBfSB1 + kBfKSteps * 32 * kC1;
 constexpr int kBfSX = kBfSB2 + kBfKSteps * 32 * kC2;
-constexpr int kBfSF1 = kBfSX + kBfCellsX * kBfCellBytes;
-constexpr int kBfSF2 = kBfSF1 + kBfWGs * kBfMt1 * 64 * kBfCellBytes;
-constexpr int kBfSW3 = kBfSF2 + kBfWGs * kBfMt2 * 64 * 16;
+constexpr int kBfSF1 = kBfSX + 4 * kBfGroupX;
+constexpr int kBfSF2 = kBfSF1 + 4 * kBfGroup1;
+constexpr int kBfSW3 = kBfSF2 + 128 * kBfMt2 * 16;
 constexpr int kBfSBar = kBfSW3 + kC2 * kTaps * 4;
 constexpr int kBfSmemBytes = kBfSBar + 4 * 8 + 128;   // + the alignment
 static_assert(kBfSmemBytes <= 232448, "a block's shared memory on sm_90");
 static_assert(kBfStageBytes % 128 == 0 && kBfSB1 % 128 == 0 &&
-                  kBfSB2 % 128 == 0 && kBfSX % 16 == 0 && kBfSF1 % 16 == 0 &&
-                  kBfSF2 % 16 == 0 && kBfSW3 % 16 == 0 && kBfSBar % 8 == 0,
-              "TMA, ldmatrix and mbarrier alignment");
-static_assert(kBfXW + 5 <= kBfBoxW && kBfBoxW * 2 % 16 == 0 &&
+                  kBfSB2 % 128 == 0 && kBfSX % 128 == 0 &&
+                  kBfSF1 % 128 == 0 && kBfSF2 % 128 == 0 &&
+                  kBfSW3 % 16 == 0 && kBfSBar % 8 == 0,
+              "TMA, wgmma and mbarrier alignment");
+static_assert(kBfGW + 5 <= kBfBoxW && kBfBoxW * 2 % 16 == 0 &&
                   kBfTileW % 8 == 0,
               "the box of x: columns c0 - 8 .., 16-byte aligned");
-static_assert(kBfWGs * kBfMt1 * 64 >= kBfCells1 &&
-                  kBfWGs * kBfMt2 * 64 >= kBfCells2 && kBfMt1 % kBfPasses1 == 0,
-              "M-tiles cover the cells");
+static_assert(128 * kBfMt1 >= kBfF1H * kBfGW &&
+                  128 * kBfMt2 >= kBfF2H * kBfGW &&
+                  128 * kBfMt1 + 2 * kBfGW + 2 <= kBfCellsX + 4 * kBfGroup1 / 16,
+              "M-tiles cover the grid, and their reads stay in shared memory");
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
@@ -750,31 +747,12 @@ __device__ __forceinline__ float elu_fast(float v) {
   return v > 0.0f ? v : ex2_ftz(v * 1.4426950408889634f) - 1.0f;
 }
 
-// --- Hopper building blocks: ldmatrix, wgmma with A from registers, TMA,
-// mbarriers ---
+// --- Hopper building blocks: wgmma with both operands in shared memory,
+// TMA, mbarriers ---
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
-
-// Four 8x8 bf16 matrices; lane l gives the shared address of row l % 8 of
-// matrix l / 8. As an A fragment of a 16x16 slice: matrix 0 rows 0-7 and
-// k 0-7, matrix 1 rows 8-15 and k 0-7, matrices 2, 3 the same at k 8-15.
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], uint32_t addr) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, "
-               "[%4];"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(addr)
-               : "memory");
-}
-
-// Lane l's row of a 16-row slice that ldmatrix_x4 reads, and the byte
-// offset of its 8 channels: rows (l % 8) + 8 ((l / 8) % 2), channels 8 (l /
-// 16).
-__device__ __forceinline__ int ldm_row(int lane) {
-  return (lane & 7) + ((lane >> 3) & 1) * 8;
-}
-__device__ __forceinline__ int ldm_kbyte(int lane) { return (lane >> 4) * 16; }
 
 // wgmma's shared-memory matrix descriptor, no swizzle: 8x16-byte core
 // matrices, `lbo` bytes apart along K and `sbo` bytes apart along N.
@@ -802,47 +780,45 @@ __device__ __forceinline__ void fence_regs(float (&d)[kN]) {
   for (int i = 0; i < kN; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
 
-// D[64 x N] += A[64 x 16] B[16 x N]: bf16 in, f32 accumulators. A from
-// registers (warp w of the warpgroup holds rows 16w..16w+15 as an
-// mma.sync m16n8k16 A fragment), B through its descriptor (K-major). A
-// thread's accumulators: for each 8 columns j, (row g, col 8j + 2t, +1)
-// then (row g + 8, the same), g = lane / 4, t = lane % 4.
-__device__ __forceinline__ void wgmma_n32(float (&d)[16],
-                                          const uint32_t (&a)[4],
+// D[64 x N] += A[64 x 16] B[16 x N]: bf16 in, f32 accumulators, both
+// operands through their shared-memory descriptors (K-major). A thread's
+// accumulators: warp w of the warpgroup holds rows 16w..16w+15; for each 8
+// columns j, (row g, col 8j + 2t, +1) then (row g + 8, the same), g = lane
+// / 4, t = lane % 4.
+__device__ __forceinline__ void wgmma_n32(float (&d)[16], uint64_t desc_a,
                                           uint64_t desc_b) {
   asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
       "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
-      "%15}, {%16, %17, %18, %19}, %20, p, 1, 1, 0;\n}\n"
+      "%15}, %16, %17, p, 1, 1, 0, 0;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
         "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
         "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
         "+f"(d[15])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1)
+      : "l"(desc_a), "l"(desc_b), "r"(1)
       : "memory");
 }
 
-__device__ __forceinline__ void wgmma_n8(float (&d)[4], const uint32_t (&a)[4],
+__device__ __forceinline__ void wgmma_n8(float (&d)[4], uint64_t desc_a,
                                          uint64_t desc_b) {
   asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %9, 0;\n"
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %6, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n8k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, %8, p, 1, 1, 0;\n}\n"
+      "{%0, %1, %2, %3}, %4, %5, p, 1, 1, 0, 0;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1)
+      : "l"(desc_a), "l"(desc_b), "r"(1)
       : "memory");
 }
 
 template <int kN>
 __device__ __forceinline__ void wgmma_bf16(float (&d)[kN / 2],
-                                           const uint32_t (&a)[4],
-                                           uint64_t desc_b) {
+                                           uint64_t desc_a, uint64_t desc_b) {
   if constexpr (kN == 32) {
-    wgmma_n32(d, a, desc_b);
+    wgmma_n32(d, desc_a, desc_b);
   } else {
     static_assert(kN == 8, "conv1's N = 32, conv2's N = 8");
-    wgmma_n8(d, a, desc_b);
+    wgmma_n8(d, desc_a, desc_b);
   }
 }
 
@@ -972,18 +948,17 @@ __device__ __forceinline__ void copy_box(__nv_bfloat16* dst,
   }
 }
 
-// elu(x) of one item of a stage into the cell-major buffer: item i (< 2
-// kBfCellsX) is channels 8 (i / kBfCellsX) .. + 7 of the stage's 16 at cell
-// i % kBfCellsX of the tile's elu(x) region, read from the box at the cell's
-// reflected coordinate (8 two-byte loads across the stage's planes) and
-// stored as one 16-byte piece of the cell.
+// elu(x) of one item of a stage: item i (< 2 kBfCellsX) is channels 8 (i /
+// kBfCellsX) .. + 7 of the stage's 16 at grid position i % kBfCellsX, read
+// from the box at the position's reflected coordinate (8 two-byte loads
+// across the stage's planes) and stored as its 16 bytes of their group.
 __device__ __forceinline__ void convert_item(unsigned char* xs,
                                              const __nv_bfloat16* stage,
                                              Tile tl, int half, int H, int W,
                                              int i) {
   const int g8 = i >= kBfCellsX;
   const int cell = i - g8 * kBfCellsX;
-  const int r = cell / kBfXW, c = cell - r * kBfXW;
+  const int r = cell / kBfGW, c = cell - r * kBfGW;
   int rr = r, cc = c + 5;    // where the tile's elu(x) region is in the image
   if (tl.r0 < 3 || tl.r0 + kBfTileH + 3 > H || tl.c0 < 3 ||
       tl.c0 + kBfTileW + 3 > W) {
@@ -996,16 +971,40 @@ __device__ __forceinline__ void convert_item(unsigned char* xs,
   for (int k = 0; k < 8; ++k) {
     v[k] = elu_fast(__bfloat162float(src[k * kBfPlane]));
   }
-  *reinterpret_cast<uint4*>(xs + cell * kBfCellBytes + 32 * half + 16 * g8) =
+  *reinterpret_cast<uint4*>(xs + (2 * half + g8) * kBfGroupX + cell * 16) =
       make_uint4(pack_bf16(v[0], v[1]), pack_bf16(v[2], v[3]),
                  pack_bf16(v[4], v[5]), pack_bf16(v[6], v[7]));
 }
 
+// Reflect padding on a grid of `rows` rows from image (r0, c0), kGroups
+// groups `group` bytes apart: each position one row or column outside the
+// image (row -1 or H, column -1 or W) takes the values of its reflection
+// (row 1 or H - 2, column 1 or W - 2), which a conv computed from in-image
+// taps; positions further out feed no output. The convs compute every
+// position alike from its shifted neighbours, so this is their padding.
+template <int kGroups>
+__device__ __forceinline__ void reflect_border(unsigned char* f, int group,
+                                               int rows, int r0, int c0,
+                                               int H, int W, int ctid) {
+  for (int p = ctid; p < rows * kBfGW; p += kBfConsumers) {
+    const int i = p / kBfGW;
+    const int gr = r0 + i, gc = c0 + p - i * kBfGW;
+    const bool in_r = gr >= 0 && gr < H, in_c = gc >= 0 && gc < W;
+    if (gr < -1 || gr > H || gc < -1 || gc > W || (in_r && in_c)) continue;
+    const int src = (reflect(gr, H) - r0) * kBfGW + reflect(gc, W) - c0;
+#pragma unroll
+    for (int k = 0; k < kGroups; ++k) {
+      *reinterpret_cast<uint4*>(f + k * group + p * 16) =
+          *reinterpret_cast<const uint4*>(f + k * group + src * 16);
+    }
+  }
+}
+
 // sigmoid(conv3) at pixel p of the tile, if it lies in the image: f2's 3x3
-// cells around it (8 bf16 channels in 16 bytes a cell) by the bf16-rounded
-// weights w3s [ci][tap] in f32 FMAs.
+// positions around it (8 bf16 channels in 16 bytes a position) by the
+// bf16-rounded weights w3 [ci][tap] in f32 FMAs.
 __device__ __forceinline__ void conv3_pixel(const unsigned char* f2,
-                                            const float (&w3s)[kC2 * kTaps],
+                                            const float (&w3)[kC2 * kTaps],
                                             float bias3,
                                             float* __restrict__ out, Tile tl,
                                             int H, int W, int p) {
@@ -1015,72 +1014,42 @@ __device__ __forceinline__ void conv3_pixel(const unsigned char* f2,
 #pragma unroll
   for (int tap = 0; tap < kTaps; ++tap) {
     const uint4 v = *reinterpret_cast<const uint4*>(
-        f2 + ((i + tap / 3) * kBfF2W + j + tap % 3) * 16);
+        f2 + ((i + tap / 3) * kBfGW + j + tap % 3) * 16);
     const uint32_t words[4] = {v.x, v.y, v.z, v.w};
 #pragma unroll
     for (int k = 0; k < 4; ++k) {
-      s = fmaf(__uint_as_float(words[k] << 16), w3s[2 * k * kTaps + tap], s);
+      s = fmaf(__uint_as_float(words[k] << 16), w3[2 * k * kTaps + tap], s);
       s = fmaf(__uint_as_float(words[k] & 0xFFFF0000u),
-               w3s[(2 * k + 1) * kTaps + tap], s);
+               w3[(2 * k + 1) * kTaps + tap], s);
     }
   }
   out[((int64_t)tl.n * H + tl.r0 + i) * W + tl.c0 + j] = sigmoid(s);
 }
 
-// The buffer cell, in elu(x), of the top-left tap of f1's cell m (computed
-// at its reflected coordinate; padding rows clamped to the last cell), and
-// the same in f1 for f2's cell m.
-__device__ __forceinline__ int bf_base1(int m, Tile tl, int H, int W) {
-  m = min(m, kBfCells1 - 1);
-  const int i = m / kBfF1W;
-  const int qr = reflect(tl.r0 - 2 + i, H) - (tl.r0 - 3);
-  const int qc = reflect(tl.c0 - 2 + m - i * kBfF1W, W) - (tl.c0 - 3);
-  return (qr - 1) * kBfXW + qc - 1;
-}
-
-__device__ __forceinline__ int bf_base2(int m, Tile tl, int H, int W) {
-  m = min(m, kBfCells2 - 1);
-  const int i = m / kBfF2W;
-  const int qr = reflect(tl.r0 - 1 + i, H) - (tl.r0 - 2);
-  const int qc = reflect(tl.c0 - 1 + m - i * kBfF2W, W) - (tl.c0 - 2);
-  return (qr - 1) * kBfF1W + qc - 1;
-}
-
 // A conv of this warpgroup's kMt M-tiles on wgmma: acc[j] += A B over the
-// 18 k-steps, A by ldmatrix_x4 at row[j] (the lane's row's top-left tap
-// cell and channel offset) plus the k-step's tap and channel offset in a
-// source kSrcW cells wide, B from desc_b (stage_wgmma_b's slices, 2 kN
-// 16-byte units apart). The next k-step's fragments load while this one's
-// wgmmas run: one commit group left in flight frees the other fragment set.
-template <int kN, int kMt, int kSrcW>
+// 18 k-steps, A through desc_a[j] (64 consecutive grid positions of the
+// source, kGroup bytes a group) plus the k-step's tap shift and channel
+// groups, B through desc_b (stage_wgmma_b's slices, 2 kN 16-byte units
+// apart). All 18 kMt wgmmas go out before the one wait.
+template <int kN, int kMt, int kGroup>
 __device__ __forceinline__ void conv_wgmma(float (&acc)[kMt][kN / 2],
-                                           const uint32_t (&row)[kMt],
+                                           const uint64_t (&desc_a)[kMt],
                                            uint64_t desc_b) {
-  uint32_t a[2][kMt][4];
 #pragma unroll
-  for (int j = 0; j < kMt; ++j) {
-    ldmatrix_x4(a[0][j], row[j]);
-    fence_regs(acc[j]);
-  }
+  for (int j = 0; j < kMt; ++j) fence_regs(acc[j]);
+  wgmma_fence();
 #pragma unroll
   for (int s = 0; s < kBfKSteps; ++s) {
-    wgmma_fence();
+    const int tap = s >> 1;
+    const uint32_t a_off =
+        (((tap / 3) * kBfGW + tap % 3) * 16 + (s & 1) * 2 * kGroup) >> 4;
 #pragma unroll
     for (int j = 0; j < kMt; ++j) {
-      wgmma_bf16<kN>(acc[j], a[s & 1][j], desc_b + (uint64_t)(2 * kN * s));
-    }
-    wgmma_commit();
-    if (s + 1 < kBfKSteps) {
-      wgmma_wait<1>();
-      const int tap = (s + 1) >> 1;
-      const uint32_t off =
-          ((tap / 3) * kSrcW + tap % 3) * kBfCellBytes + ((s + 1) & 1) * 32;
-#pragma unroll
-      for (int j = 0; j < kMt; ++j) {
-        ldmatrix_x4(a[(s + 1) & 1][j], row[j] + off);
-      }
+      wgmma_bf16<kN>(acc[j], desc_a[j] + a_off,
+                     desc_b + (uint64_t)(2 * kN * s));
     }
   }
+  wgmma_commit();
   wgmma_wait<0>();
 #pragma unroll
   for (int j = 0; j < kMt; ++j) fence_regs(acc[j]);
@@ -1159,6 +1128,19 @@ decoder_tail_bf16_kernel(const __grid_constant__ CUtensorMap x_map,
   unsigned char* f2 = sm + kBfSF2;
   const uint64_t desc1 = wgmma_desc(smem_addr(sm + kBfSB1), kWgLbo, kWgSbo);
   const uint64_t desc2 = wgmma_desc(smem_addr(sm + kBfSB2), kWgLbo, kWgSbo);
+  // A: this warpgroup's M-tiles of consecutive grid positions, 8 of them
+  // (16 bytes apart) a core matrix, the groups kBfGroup* apart along K
+  uint64_t desc_x[kBfMt1], desc_f1[kBfMt2];
+#pragma unroll
+  for (int j = 0; j < kBfMt1; ++j) {
+    desc_x[j] = wgmma_desc(smem_addr(xs + (kBfMt1 * wg + j) * 64 * 16),
+                           kBfGroupX, 128);
+  }
+#pragma unroll
+  for (int j = 0; j < kBfMt2; ++j) {
+    desc_f1[j] = wgmma_desc(smem_addr(f1 + (kBfMt2 * wg + j) * 64 * 16),
+                            kBfGroup1, 128);
+  }
   const float bias3 = __ldg(b3);
   BfProbe probe;
   int q = 0;    // stages consumed; the q-th lies in stage q % 2
@@ -1169,11 +1151,6 @@ decoder_tail_bf16_kernel(const __grid_constant__ CUtensorMap x_map,
       probe.mark(0);
       const __nv_bfloat16* stage = reinterpret_cast<const __nv_bfloat16*>(
           sm + kBfSRing + (q & 1) * kBfStageBytes);
-#ifndef TCSFM_BF_CONV_UNROLL
-#define TCSFM_BF_CONV_UNROLL 1
-#endif
-      constexpr int kUnroll = TCSFM_BF_CONV_UNROLL;
-#pragma unroll kUnroll
       for (int i = tid; i < 2 * kBfCellsX; i += kBfConsumers) {
         convert_item(xs, stage, tl, half, H, W, i);
       }
@@ -1183,18 +1160,11 @@ decoder_tail_bf16_kernel(const __grid_constant__ CUtensorMap x_map,
     consumers_sync();    // elu(x) complete
     probe.mark(2);
 
-    // conv1: M-tiles kBfMt1 wg .. + kBfMt1 - 1 of f1's cells, in passes
+    // conv1 at the warpgroup's positions of f1's grid
+    {
+      float acc[kBfMt1][16];
 #pragma unroll
-    for (int pass = 0; pass < kBfPasses1; ++pass) {
-      constexpr int kMt = kBfMt1 / kBfPasses1;
-      const int mt0 = kBfMt1 * wg + kMt * pass;
-      float acc[kMt][16];
-      uint32_t row[kMt];
-#pragma unroll
-      for (int j = 0; j < kMt; ++j) {
-        const int m = (mt0 + j) * 64 + 16 * wl + ldm_row(lane);
-        row[j] = smem_addr(xs) + bf_base1(m, tl, H, W) * kBfCellBytes +
-                 ldm_kbyte(lane);
+      for (int j = 0; j < kBfMt1; ++j) {
 #pragma unroll
         for (int n8 = 0; n8 < 4; ++n8) {
           acc[j][4 * n8] = acc[j][4 * n8 + 2] = __ldg(b1 + 8 * n8 + 2 * t);
@@ -1202,52 +1172,60 @@ decoder_tail_bf16_kernel(const __grid_constant__ CUtensorMap x_map,
               __ldg(b1 + 8 * n8 + 2 * t + 1);
         }
       }
-      conv_wgmma<kC1, kMt, kBfXW>(acc, row, desc1);
+      conv_wgmma<kC1, kBfMt1, kBfGroupX>(acc, desc_x, desc1);
       probe.mark(3);
 #pragma unroll
-      for (int j = 0; j < kMt; ++j) {
+      for (int j = 0; j < kBfMt1; ++j) {
 #pragma unroll
         for (int r = 0; r < 2; ++r) {
-          const int m = (mt0 + j) * 64 + 16 * wl + g + 8 * r;
-          uint32_t* cell = reinterpret_cast<uint32_t*>(f1 + m * kBfCellBytes);
+          const int m = (kBfMt1 * wg + j) * 64 + 16 * wl + g + 8 * r;
 #pragma unroll
           for (int n8 = 0; n8 < 4; ++n8) {
-            cell[4 * n8 + t] = pack_bf16(elu_fast(acc[j][4 * n8 + 2 * r]),
-                                         elu_fast(acc[j][4 * n8 + 2 * r + 1]));
+            *reinterpret_cast<uint32_t*>(f1 + n8 * kBfGroup1 + m * 16 +
+                                         4 * t) =
+                pack_bf16(elu_fast(acc[j][4 * n8 + 2 * r]),
+                          elu_fast(acc[j][4 * n8 + 2 * r + 1]));
           }
         }
       }
-      probe.mark(4);
     }
+    probe.mark(4);
     consumers_sync();    // f1 complete
+    if (tl.r0 == 0 || tl.c0 == 0 || tl.r0 + kBfF1H - 2 >= H ||
+        tl.c0 + kBfGW - 2 >= W) {
+      reflect_border<4>(f1, kBfGroup1, kBfF1H, tl.r0 - 2, tl.c0 - 2, H, W,
+                        tid);
+      consumers_sync();
+    }
     probe.mark(5);
 
-    // conv2: M-tiles kBfMt2 wg .. + kBfMt2 - 1 of f2's cells
+    // conv2 at the warpgroup's positions of f2's grid
     {
       float acc[kBfMt2][4];
-      uint32_t row[kBfMt2];
 #pragma unroll
       for (int j = 0; j < kBfMt2; ++j) {
-        const int m = (kBfMt2 * wg + j) * 64 + 16 * wl + ldm_row(lane);
-        row[j] = smem_addr(f1) + bf_base2(m, tl, H, W) * kBfCellBytes +
-                 ldm_kbyte(lane);
         acc[j][0] = acc[j][2] = __ldg(b2 + 2 * t);
         acc[j][1] = acc[j][3] = __ldg(b2 + 2 * t + 1);
       }
-      conv_wgmma<kC2, kBfMt2, kBfF1W>(acc, row, desc2);
+      conv_wgmma<kC2, kBfMt2, kBfGroup1>(acc, desc_f1, desc2);
       probe.mark(6);
 #pragma unroll
       for (int j = 0; j < kBfMt2; ++j) {
 #pragma unroll
         for (int r = 0; r < 2; ++r) {
           const int m = (kBfMt2 * wg + j) * 64 + 16 * wl + g + 8 * r;
-          reinterpret_cast<uint32_t*>(f2 + m * 16)[t] = pack_bf16(
+          *reinterpret_cast<uint32_t*>(f2 + m * 16 + 4 * t) = pack_bf16(
               elu_fast(acc[j][2 * r]), elu_fast(acc[j][2 * r + 1]));
         }
       }
     }
     probe.mark(7);
     consumers_sync();    // f2 complete
+    if (tl.r0 == 0 || tl.c0 == 0 || tl.r0 + kBfF2H - 1 >= H ||
+        tl.c0 + kBfGW - 1 >= W) {
+      reflect_border<1>(f2, 0, kBfF2H, tl.r0 - 1, tl.c0 - 1, H, W, tid);
+      consumers_sync();
+    }
     probe.mark(8);
     {
       float w3r[kC2 * kTaps];
@@ -1269,35 +1247,34 @@ decoder_tail_bf16_kernel(const __grid_constant__ CUtensorMap x_map,
 }
 
 #ifdef TCSFM_TAIL_PROBE
-// The probe's checks of the wgmma building blocks (ops/tail_probe.py), one
-// warpgroup: d [64, kN] = a [64, 32] (bf16) times w[:, :, 0, 0]^T (kN of
-// OIHW f32 weights [kN, 32, 3, 3], rounded to bf16), with a's rows staged
-// kBfCellBytes apart, its fragments by ldmatrix_x4 and the weights in
-// stage_wgmma_b's layout: k-steps 0 and 1 (tap 0, both halves).
+// The probe's check of the kernel's wgmma building blocks (ops/tail_probe.py),
+// one warpgroup: d [64, kN] = a[1:65] (bf16 [65, 32]) times w[:, :, 0, 0]^T
+// (kN of OIHW f32 weights [kN, 32, 3, 3], rounded to bf16), a staged as the
+// kernel's grids are (8-channel groups, 16 bytes a row, the groups 65 rows
+// apart) and read from row 1 (a shift of one position, as a tap's), the
+// weights in stage_wgmma_b's layout: k-steps 0 and 1 (tap 0, both halves).
 template <int kN>
 __global__ void __launch_bounds__(128)
     wgmma_check_kernel(const __nv_bfloat16* a, const float* w, float* d) {
-  __shared__ __align__(128) unsigned char sa[64 * 80];
+  constexpr int kGroup = 65 * 16;
+  __shared__ __align__(128) unsigned char sa[4 * kGroup];
   __shared__ __align__(128) unsigned char sb[kBfKSteps * 32 * kN];
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  for (int i = tid; i < 64 * 32; i += 128) {
-    *reinterpret_cast<__nv_bfloat16*>(sa + (i >> 5) * 80 + (i & 31) * 2) =
-        a[i];
+  for (int i = tid; i < 65 * 32; i += 128) {
+    const int row = i >> 5, ch = i & 31;
+    *reinterpret_cast<__nv_bfloat16*>(sa + (ch >> 3) * kGroup + row * 16 +
+                                      (ch & 7) * 2) = a[i];
   }
   stage_wgmma_b<kN>(sb, w, tid, 128);
   asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
   __syncthreads();
   float acc[kN / 2] = {};
-  uint32_t f0[4], f1[4];
-  const uint32_t row =
-      smem_addr(sa) + (16 * warp + ldm_row(lane)) * 80 + ldm_kbyte(lane);
-  ldmatrix_x4(f0, row);
-  ldmatrix_x4(f1, row + 32);
-  const uint32_t b = smem_addr(sb);
-  wgmma_fence();
+  const uint64_t desc_a = wgmma_desc(smem_addr(sa + 16), kGroup, 128);
+  const uint64_t desc_b = wgmma_desc(smem_addr(sb), kWgLbo, kWgSbo);
   fence_regs(acc);
-  wgmma_bf16<kN>(acc, f0, wgmma_desc(b, kWgLbo, kWgSbo));
-  wgmma_bf16<kN>(acc, f1, wgmma_desc(b + 32 * kN, kWgLbo, kWgSbo));
+  wgmma_fence();
+  wgmma_bf16<kN>(acc, desc_a, desc_b);
+  wgmma_bf16<kN>(acc, desc_a + (2 * kGroup >> 4), desc_b + 2 * kN);
   wgmma_commit();
   wgmma_wait<0>();
   fence_regs(acc);
@@ -1313,12 +1290,10 @@ __global__ void __launch_bounds__(128)
   }
 }
 
-// The rate of wgmma m64nNk16 bf16 with A from registers: two warpgroups a
-// block, each with 4 independent accumulators (as the tail's convs keep
-// several M-tiles in flight), 8 k-steps into each per commit group, one
-// group left in flight. A is loaded by ldmatrix_x4, as in the kernel (A
-// registers that the compiler rematerializes from constants make ptxas
-// serialize the wgmmas).
+// The rate of wgmma m64nNk16 bf16 with both operands from shared memory:
+// two warpgroups a block, each with 4 independent accumulators (as the
+// tail's convs keep several M-tiles in flight), 8 k-steps into each per
+// commit group, one group left in flight.
 template <int kN>
 __global__ void __launch_bounds__(256) wgmma_rate_kernel(float* out,
                                                           int iters) {
@@ -1330,18 +1305,17 @@ __global__ void __launch_bounds__(256) wgmma_rate_kernel(float* out,
   for (int i = threadIdx.x; i < 64 * 8; i += 256) sa[i] = 0x3c003c00u;
   asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
   __syncthreads();
-  const int lane = threadIdx.x & 31, warp = (threadIdx.x >> 5) & 3;
-  uint32_t a[4];
-  ldmatrix_x4(a, smem_addr(sa) + (16 * warp + ldm_row(lane)) * 32 +
-                     ldm_kbyte(lane));
   float acc[4][kN / 2] = {};
-  const uint64_t desc = wgmma_desc(smem_addr(sb), kWgLbo, kWgSbo);
+  const uint64_t desc_a = wgmma_desc(smem_addr(sa), 64 * 16, 128);
+  const uint64_t desc_b = wgmma_desc(smem_addr(sb), kWgLbo, kWgSbo);
+#pragma unroll
+  for (int j = 0; j < 4; ++j) fence_regs(acc[j]);
   wgmma_fence();
   for (int i = 0; i < iters; ++i) {
 #pragma unroll
     for (int k = 0; k < 8; ++k) {
 #pragma unroll
-      for (int j = 0; j < 4; ++j) wgmma_bf16<kN>(acc[j], a, desc);
+      for (int j = 0; j < 4; ++j) wgmma_bf16<kN>(acc[j], desc_a, desc_b);
     }
     wgmma_commit();
     wgmma_wait<1>();

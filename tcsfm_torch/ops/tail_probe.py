@@ -32,10 +32,10 @@ from tcsfm_torch.ops import decoder_tail as dt
 PHASES = ("wait for a chunk + ELU", "barrier + next copy", "conv1 MMAs",
           "f1 epilogue", "conv2", "conv3")
 # the bf16 kernel's marks (BfProbe in csrc/decoder_tail.cu)
-PHASES_BF16 = ("wait for x (full mbarrier)", "ELU into cell-major",
+PHASES_BF16 = ("wait for x (full mbarrier)", "ELU into the grid",
                "barrier: elu(x) complete", "conv1 wgmma", "f1 epilogue",
-               "barrier: f1 complete", "conv2 wgmma", "f2 epilogue",
-               "barrier: f2 complete", "conv3 + store")
+               "barrier + f1's reflect pad", "conv2 wgmma", "f2 epilogue",
+               "barrier + f2's reflect pad", "conv3 + store")
 SHAPE = (18, 32, 192, 640)
 MMA_ITERS = 20000
 WGMMA_ITERS = 4000
@@ -195,14 +195,14 @@ def wgmma_check(lib) -> None:
     rng = np.random.RandomState(1)
     stream = torch.cuda.current_stream().cuda_stream
     for n in (32, 8):
-        a = torch.from_numpy(rng.randn(64, 32).astype(np.float32)).to(
+        a = torch.from_numpy(rng.randn(65, 32).astype(np.float32)).to(
             "cuda", torch.bfloat16)
         w = torch.from_numpy(rng.randn(n, 32, 3, 3).astype(np.float32)).cuda()
         d = torch.empty(64, n, device="cuda")
         _raise_on(lib.tcsfm_wgmma_check(a.data_ptr(), w.data_ptr(),
                                         d.data_ptr(), n, stream),
                   "wgmma check")
-        ref = a.double() @ w[:, :, 0, 0].to(torch.bfloat16).double().t()
+        ref = a[1:].double() @ w[:, :, 0, 0].to(torch.bfloat16).double().t()
         err = ((d.double() - ref).abs().max() / ref.abs().max()).item()
         print(f"wgmma m64n{n}k16 building blocks vs float64: max relative "
               f"error {err:.2e} (limit {WGMMA_CHECK_TOL})")

@@ -583,21 +583,55 @@ def test_kernel_tiling_emulation_matches_plain(shape, grid):
     assert (out - dt.decoder_tail_plain(x, *ws)).abs().max().item() <= 1e-6
 
 
+def _grid_conv(src, w, b, gw, rows):
+    """elu(conv) at ``rows`` positions of a grid ``gw`` wide, stored
+    [channels, positions]: position p takes taps p + dy gw + dx (the bf16
+    kernel's M-tiles of consecutive positions); reads past the source's end
+    are NaN."""
+    taps = torch.tensor([dy * gw + dx for dy in range(3) for dx in range(3)])
+    pad = torch.full((src.shape[0], rows + taps.max() + 1 - src.shape[1]),
+                     float("nan"))
+    a = torch.cat([src, pad], 1)[:, torch.arange(rows)[:, None] + taps]
+    a = a.permute(1, 2, 0).reshape(rows, -1)
+    return F.elu(_mm3(a, w.permute(2, 3, 1, 0).reshape(a.shape[1], -1))
+                 + b).t()
+
+
+def _on_grid(f, rows, gw, r0, c0, hgt, wid, valid_cols):
+    """A conv's output on its grid (image row r0 + i, column c0 + j at
+    position i gw + j): positions past ``rows`` rows or ``valid_cols``
+    columns, or more than one outside the image, NaN (no output may read
+    them); those one outside the image take their reflection, as
+    ``reflect_border`` copies them."""
+    f = f[:, :rows * gw].reshape(f.shape[0], rows, gw).clone()
+    gr = torch.arange(r0, r0 + rows)[:, None].expand(rows, gw)
+    gc = torch.arange(c0, c0 + gw)[None].expand(rows, gw)
+    f[:, :, valid_cols:] = float("nan")
+    far = (gr < -1) | (gr > hgt) | (gc < -1) | (gc > wid)
+    edge = ~far & ((gr < 0) | (gr >= hgt) | (gc < 0) | (gc >= wid))
+    src = f[:, _reflect(gr, hgt) - r0, _reflect(gc, wid) - c0]
+    f = torch.where(edge, src, f)
+    f[:, far] = float("nan")
+    return f.reshape(f.shape[0], -1)
+
+
 def _emulate_bf16_kernel(x, w1, b1, w2, b2, w3, b3, grid):
     """The bf16 kernel's tiling (``decoder_tail_bf16_kernel``) in plain
     PyTorch, in float32: ``grid`` persistent blocks take tiles in a fixed
     stride; per tile, x's box (rows r0-3.., columns c0-8.., ``kBfBoxW``
     wide: TMA's columns start on 16 bytes) as the producer fills it, its
     cells outside the image NaN (TMA's zeros, or left unwritten: no cell
-    may read them); elu(x) at each cell's reflected coordinate inside the
-    box; conv1 over f1's cells and conv2
-    over f2's, each in M-tiles of 64 rows over two warpgroups (padding rows
-    clamped to the last cell), each cell from its taps' offsets in the
-    buffer before; conv3 at the in-image pixels. Checks that every read
-    falls inside its buffer and every output pixel is written once."""
+    may read them); elu(x) on a grid ``kBfTileW`` + 6 positions wide, each
+    position at its reflected coordinate in the box; conv1 and conv2 at the
+    consecutive positions of their grids (two warpgroups of 64-position
+    M-tiles; positions past a row's end, or the grid's, NaN), each then
+    reflect-padded by copying; conv3 at the in-image pixels. Checks that
+    every read falls inside its buffer and every output pixel is written
+    once."""
     k = _kernel_constants()
     th, tw, bw = k["kBfTileH"], k["kBfTileW"], k["kBfBoxW"]
-    xh, xw, f1h, f1w, f2h, f2w = th + 6, tw + 6, th + 4, tw + 4, th + 2, tw + 2
+    gw, xh, f1h, f2h = tw + 6, th + 6, th + 4, th + 2
+    assert gw + 5 <= bw and bw % 8 == 0
     n, _, hgt, wid = x.shape
     tiles_h, tiles_w = -(-hgt // th), -(-wid // tw)
     out = torch.full((n, hgt, wid), float("nan"))
@@ -605,37 +639,26 @@ def _emulate_bf16_kernel(x, w1, b1, w2, b2, w3, b3, grid):
         for tile in range(block, n * tiles_h * tiles_w, grid):
             img, rc = divmod(tile, tiles_h * tiles_w)
             r0, c0 = rc // tiles_w * th, rc % tiles_w * tw
-            rb, cb = r0 - 3, c0 - 8
-            assert cb % 8 == 0 and bw % 8 == 0 and xw + 5 <= bw
-            rows = torch.arange(rb, rb + xh)
-            cols = torch.arange(cb, cb + bw)
+            rows = torch.arange(r0 - 3, r0 - 3 + xh)
+            cols = torch.arange(c0 - 8, c0 - 8 + bw)
             inside = (((rows >= 0) & (rows < hgt))[:, None]
                       & ((cols >= 0) & (cols < wid))[None])
             box = torch.full((C1, xh, bw), float("nan"))
             box[:, inside] = x[img][:, rows.clamp(0, hgt - 1)][
                 :, :, cols.clamp(0, wid - 1)][:, inside]
-            rr = _reflect(torch.arange(r0 - 3, r0 - 3 + xh), hgt) - rb
-            cc = _reflect(torch.arange(c0 - 3, c0 - 3 + xw), wid) - cb
+            rr = _reflect(rows, hgt) - (r0 - 3)
+            cc = _reflect(torch.arange(c0 - 3, c0 - 3 + gw), wid) - (c0 - 8)
             assert rr.min() >= 0 and rr.max() < xh
             assert cc.min() >= 0 and cc.max() < bw
             f0 = F.elu(box[:, rr][:, :, cc]).reshape(C1, -1)
             assert not torch.isnan(f0).any()
-            m = torch.arange(-(-f1h * f1w // 128) * 128).clamp(
-                max=f1h * f1w - 1)
-            qr = _reflect(r0 - 2 + m // f1w, hgt) - (r0 - 3)
-            qc = _reflect(c0 - 2 + m % f1w, wid) - (c0 - 3)
-            assert qr.min() >= 1 and qr.max() <= xh - 2
-            assert qc.min() >= 1 and qc.max() <= xw - 2
-            f1 = _implicit_gemm(f0, (qr - 1) * xw + qc - 1, xw, w1, b1)
-            m = torch.arange(-(-f2h * f2w // 128) * 128).clamp(
-                max=f2h * f2w - 1)
-            qr = _reflect(r0 - 1 + m // f2w, hgt) - (r0 - 2)
-            qc = _reflect(c0 - 1 + m % f2w, wid) - (c0 - 2)
-            assert qr.min() >= 1 and qr.max() <= f1h - 2
-            assert qc.min() >= 1 and qc.max() <= f1w - 2
-            f2 = _implicit_gemm(f1.t(), (qr - 1) * f1w + qc - 1, f1w, w2,
-                                b2)[:f2h * f2w]
-            y = torch.sigmoid(F.conv2d(f2.t().reshape(1, C2, f2h, f2w), w3,
+            m1 = -(-f1h * gw // 128) * 128
+            f1 = _on_grid(_grid_conv(f0, w1, b1, gw, m1), f1h, gw, r0 - 2,
+                          c0 - 2, hgt, wid, tw + 4)
+            m2 = -(-f2h * gw // 128) * 128
+            f2 = _on_grid(_grid_conv(f1, w2, b2, gw, m2), f2h, gw, r0 - 1,
+                          c0 - 1, hgt, wid, tw + 2)
+            y = torch.sigmoid(F.conv2d(f2.reshape(1, C2, f2h, gw), w3,
                                        b3))[0, 0]
             hh, ww = min(th, hgt - r0), min(tw, wid - c0)
             assert torch.isnan(out[img, r0:r0 + hh, c0:c0 + ww]).all()
