@@ -297,6 +297,16 @@ TAIL_TC_MACS = 9 * 32 * 32 + 9 * 32 * 8
 # moved by more than 1e-6)
 BF16_FLOPS_PER_S = 989e12     # H100 SXM dense bf16 tensor cores
 TAIL_BF16_TOL = 4e-3
+# the bf16 kernel's own border cases (16x32 tiles; x by TMA where W % 8 ==
+# 0, else by the producer's loads), besides TAIL_SHAPES: H and W one past a
+# tile; W % 8 == 0 with tiles cut at the bottom and right; TMA boxes out of
+# the image on every side; a TMA box wider than the image; the smallest
+# inputs; and its executed multiply-adds per 16x32 tile (conv1 and conv2 at
+# 768 positions of a 38-wide grid, conv3 at the tile's 512 pixels)
+TAIL_BF16_SHAPES = ((1, 32, 17, 33), (2, 32, 40, 72), (1, 32, 24, 48),
+                    (1, 32, 9, 8), (1, 32, 5, 7), (1, 32, 4, 4))
+TAIL_BF16_TILE = (16, 32)
+TAIL_BF16_TILE_MACS = 768 * 9 * 32 * 32 + 768 * 9 * 32 * 8 + 16 * 32 * 72
 # phase "bf16". A kernel against its plain version on the same bf16 nets is
 # held at that kernel's own limits: both sides run the same bf16 convs, so
 # only the kernel differs. The sampler kernels (f32 as before) at the f32
@@ -1307,19 +1317,19 @@ def phase_tail_kernel(torch, dt, flush):
 
 def phase_tail_bf16_kernel(torch, dt, flush):
     """The bf16 tail kernel vs decoder_tail_plain_bf16 at the coupled
-    forward's shape [18,32,192,640] and at [2,32,190,638] (tiles cut short
-    on both borders), on the f32 disparity before the cast; at the main
-    shape its device time in turns with the default bf16 route's cuDNN
-    layer sequence (its library call) and in turns with the f32 tail
-    kernel on the same input in f32, the plain version's time, and the
-    bound."""
+    forward's shape [18,32,192,640], at [2,32,190,638] (tiles cut short
+    on both borders) and at its own border cases (TAIL_BF16_SHAPES), on the
+    f32 disparity before the cast; at the main shape its device time in
+    turns with the default bf16 route's cuDNN layer sequence (its library
+    call) and in turns with the f32 tail kernel on the same input in f32,
+    the plain version's time, and the bound."""
     import math
 
     from tcsfm_torch.models.layers import ReflConv
 
     bf16 = torch.bfloat16
     torch.backends.cudnn.allow_tf32 = False    # the plain version's f32 convs
-    for shape in TAIL_SHAPES[::-1]:
+    for shape in TAIL_BF16_SHAPES + TAIL_SHAPES[::-1]:
         x, ws = tail_inputs(torch, shape, sum(shape) + 1)
         x = x.to(bf16)
         out = dt.decoder_tail(x, *ws)
@@ -1369,11 +1379,14 @@ def phase_tail_bf16_kernel(torch, dt, flush):
     ops_ms = flops / BF16_FLOPS_PER_S * 1e3
     bound_ms = max(bytes_ms, ops_ms)
     ms = row["ms"]
+    tiles = (n * math.ceil(h / TAIL_BF16_TILE[0])
+             * math.ceil(w / TAIL_BF16_TILE[1]))
+    halo = tiles * TAIL_BF16_TILE_MACS / (n * h * w * TAIL_MACS)
     row.update(max_abs_err=err, plain_ms=plain_ms, bound_ms=bound_ms,
                bound_by="bytes" if bytes_ms >= ops_ms else "operations",
                bytes_bound_ms=bytes_ms, operations_bound_ms=ops_ms,
                f32_kernel_ms=statistics.median(k32), f32_kernel_turns=k32,
-               bf16_kernel_turns_beside_f32=k16)
+               bf16_kernel_turns_beside_f32=k16, halo_mac_ratio=halo)
     say("kernels", f"decoder_tail_bf16 {list(x.shape)}: max|kernel-cuDNN "
         f"bf16 layers| {seq_err:.3e}; " + times_text(
             row, "library_ms", "the default bf16 route's cuDNN layer "
@@ -1384,7 +1397,8 @@ def phase_tail_bf16_kernel(torch, dt, flush):
         f"({row['bound_by']}: {flops / 1e9:.2f} GFLOP at "
         f"{BF16_FLOPS_PER_S / 1e12:.0f} TFLOP/s = {us(ops_ms)} us, "
         f"{nbytes / 1e6:.2f} MB at {HBM_BYTES_PER_S / 1e12:.2f} TB/s = "
-        f"{us(bytes_ms)} us), kernel at {bound_ms / ms:.1%} of it")
+        f"{us(bytes_ms)} us), kernel at {bound_ms / ms:.1%} of it; executed "
+        f"multiply-adds {halo:.3f}x the output's (halo recompute)")
     return row
 
 

@@ -615,56 +615,64 @@ decoder_tail_kernel(const float* __restrict__ x, const float* __restrict__ w1,
 // H100's 989 TFLOP/s of dense bf16; 142 MB of bf16 x read and 8.8 MB of
 // out written, 45 us at 3.35 TB/s.
 //
-// Design for Hopper. The first version (one mma.sync kernel, two blocks an
-// SM, 12x32 tiles, x by plain 2-byte loads, five block-wide barriers a
-// tile) spent 49.6% of warp 0's cycles loading x and taking its ELU, with
-// no load overlapping any compute, 32.7% in mma.sync, 9.1% and 3.1% in the
+// Design for Hopper. The first version (mma.sync m16n8k16, two blocks an
+// SM on 12x32 tiles, x by plain 2-byte loads, five block-wide barriers a
+// tile, 728-735 us) spent 49.6% of warp 0's cycles loading x and taking its
+// ELU with no load overlapping any compute, 32.7% in its MMAs, 12.2% in the
 // f1 and f2 epilogues and 4.4% in conv3 (ops/tail_probe.py --dtype
-// bfloat16, H100). Here one persistent block an SM walks over 16x32 output
-// tiles in a fixed stride, with two roles:
-// 1. A producer warp keeps x in flight ahead of the consumers: a ring of
-//    two stages, each 16 channels of the tile's 22x48 box of x (33,792
-//    bytes; rows r0-3 .., columns c0-8 ..), with a full and an empty
-//    mbarrier a stage. Where W % 8 == 0 (x's row stride a multiple of 16
-//    bytes) and x is 16-byte aligned, one thread fills a stage by TMA from
-//    a 3-D tensor map over [N*32, H, W] (cuTensorMapEncodeTiled, reached
-//    through the runtime's cudaGetDriverEntryPointByVersion: the library
-//    links no libcuda); other widths are copied by the warp's own loads.
-//    A TMA box's first column must lie on 16 bytes (on an H100 a box at
-//    column c0-3 raised an illegal instruction; rows and columns outside
-//    the image are allowed), hence c0-8 and the width of 48. TMA fills the
-//    box's cells outside the image with zeros, and no cell reads them: each
-//    cell below takes x at its reflected coordinate, which always lies in
-//    the box. While the consumers compute a tile, both stages of the next
-//    one arrive.
-// 2. Two consumer warpgroups (256 threads) turn each arrived stage into
-//    elu(x), cell-major bf16 (a cell's 32 channels in 64 bytes at an
-//    80-byte stride: 16-byte rows for ldmatrix, and 8 consecutive cells on
-//    8 distinct 16-byte bank groups), each cell at its reflected
-//    coordinate, and release the stage. They then run conv1 and conv2 as
-//    implicit GEMMs on wgmma (m64n32k16 and m64n8k16, bf16 into f32), the
-//    cells as M (64 rows a warpgroup instruction), the output channels as
-//    N, K = 9 taps x 32 channels in 18 k-steps of 16. A comes from
-//    registers, loaded by ldmatrix at per-lane cell addresses, so that a
-//    tap's shift and a border's reflection are only addresses (every cell
-//    of a buffer is computed at its reflected coordinate, as in the f32
-//    kernel); B, the weights, is staged once per block in wgmma's K-major
-//    core-matrix layout (stage_wgmma_b). conv1's f1 cells (20x36 = 720,
-//    padded to 12 M-tiles of 64) go 6 M-tiles to a warpgroup, conv2's f2
-//    cells (18x34 = 612, 10 M-tiles) 5; each warpgroup keeps its M-tiles'
-//    accumulators in registers over the whole K loop and loads the next
-//    k-step's fragments while the current k-step's wgmmas run. f1 and f2
-//    (8 channels in 16 bytes a cell) have buffers of their own, so a tile
-//    takes three named barriers of the 256 consumer threads (elu(x), f1,
-//    f2 complete) where the first version took five block-wide ones, and
-//    the producer waits on none of them. conv3 (8 -> 1) and the sigmoid
+// bfloat16 on an H100). Here one persistent block an SM walks over 16x32
+// output tiles in a fixed stride:
+// 1. x in flight. A producer warp keeps a ring of two stages filled, each
+//    16 channels of the tile's 22x48 box of x (33,792 bytes; rows r0-3 ..,
+//    columns c0-8 ..), with a full and an empty mbarrier a stage. Where
+//    W % 8 == 0 (x's row stride a multiple of 16 bytes) and x is 16-byte
+//    aligned, one thread fills a stage by TMA from a 3-D tensor map over
+//    [N*32, H, W] (cuTensorMapEncodeTiled, reached through the runtime's
+//    cudaGetDriverEntryPointByVersion: the library links no libcuda);
+//    other widths are copied by the warp's own loads. A TMA box's first
+//    column must lie on 16 bytes (a box at column c0-3 raised an illegal
+//    instruction on an H100; rows and columns outside the image are fine,
+//    and read as zeros, which no cell takes), hence c0-8 and the width of
+//    48. While the consumers compute a tile, both stages of the next one
+//    arrive. The producer's warpgroup gives its registers to the two
+//    consumer warpgroups (setmaxnreg: 24 and 240 a thread).
+// 2. One grid for the three convs. elu(x), f1 and f2 lie on one grid 38
+//    positions wide (the tile +-3 wide), so that a tap (dy, dx) is the
+//    same shift, 38 dy + dx positions, at every position; each is stored
+//    by 8-channel groups, a position's group in 16 bytes. The consumers
+//    turn each arrived stage into elu(x) on the grid, each position at its
+//    reflected coordinate of the box, and release the stage.
+// 3. conv1 and conv2 on wgmma (m64n32k16 and m64n8k16, bf16 into f32)
+//    with both operands in shared memory: A is 64 consecutive grid
+//    positions, eight of them (128 bytes) a core matrix, the channel groups
+//    one group apart along K, so a tap only moves A's start address; B,
+//    the weights, is staged once per block in wgmma's K-major core-matrix
+//    layout (stage_wgmma_b). K = 9 taps x 32 channels in 18 k-steps of 16.
+//    Each warpgroup takes 6 M-tiles of each conv (f1's 20x38 positions,
+//    f2's 18x38, padded to 768) and issues all 108 of a conv's wgmmas
+//    before its one wait. Every position is computed alike from its
+//    shifted neighbours, so f1 and f2 get their reflect padding by copy:
+//    at a border tile the positions one row or column outside the image
+//    take their reflection's values (reflect_border). With A from
+//    registers instead (ldmatrix at per-row addresses, which needed an
+//    80-byte cell stride) the probe's build ran 377-384 us, against 361-369
+//    us here. At N = 32 and 8 both forms are bound by shared memory: a
+//    wgmma m64n32k16 reads 3 KB of operands for 65,536 operations (the
+//    card's rate for it with both operands in shared memory 658.8 TFLOP/s,
+//    with A held in registers 979.7; m64n8k16 219.6 and 301.4:
+//    ops/tail_probe.py).
+// 4. Barriers. The 256 consumer threads meet at three named barriers a
+//    tile (elu(x), f1, f2 complete; two more at border tiles, around the
+//    reflect copies) where the first version took five block-wide ones,
+//    and the producer waits on none of them. conv3 (8 -> 1) and the sigmoid
 //    stay on f32 FMAs, two output pixels a thread.
-// Halo recompute: conv1 at 768 cells for 512 outputs, conv2 at 640; 1.45x
-// the multiply-adds overall, as the 12x32 tiles were. A taller tile would
-// recompute less (24x32: 1.29x), but its ring, elu(x) and f1 need 250 KB
-// of the 227 KB a block has. Shared memory: 229,632 bytes, one block an SM.
-// The ELU below 0 is the fast exponential less 1: its result is rounded to
-// bf16, whose step (2^-9 relative) the exponential's ~2^-22 does not reach.
+// Halo recompute: conv1 and conv2 at 768 positions each, conv3 at 512
+// pixels, for 512 outputs: 1.50x the multiply-adds. A taller tile would
+// recompute less, but its ring and grids do not fit the 227 KB a block
+// has (24x32: 272 KB). Shared memory: 206,016 bytes, one block an SM. The
+// ELU below 0 is the fast exponential (ex2.approx.ftz) less 1: its result
+// is rounded to bf16, whose step (2^-9 relative) the exponential's ~2^-22
+// does not reach.
 
 constexpr int kBfTileH = 16;
 constexpr int kBfTileW = 32;
@@ -700,9 +708,10 @@ constexpr int kBfStageBytes = kBfStageC * kBfPlane * 2;
 // shared memory, in bytes from a 128-byte aligned base: the ring, conv1's
 // and conv2's weights (stage_wgmma_b), elu(x) (4 groups), f1 (4 groups),
 // f2 (one group), conv3's weights (f32), the mbarriers (full and empty, a
-// pair a stage). A conv's last M-tile reads past its source by up to
-// 2 kBfGW + 2 + 10 positions, into the next buffer, for positions no
-// output takes.
+// pair a stage). A conv's last M-tiles read past the end of a group's
+// positions (into the next group, or past the source into the next
+// buffer) for positions that no output takes; each output row of a wgmma
+// depends on its own row of A only.
 constexpr int kBfSRing = 0;
 constexpr int kBfSB1 = kBfSRing + 2 * kBfStageBytes;
 constexpr int kBfSB2 = kBfSB1 + kBfKSteps * 32 * kC1;
@@ -723,7 +732,10 @@ static_assert(kBfGW + 5 <= kBfBoxW && kBfBoxW * 2 % 16 == 0 &&
               "the box of x: columns c0 - 8 .., 16-byte aligned");
 static_assert(128 * kBfMt1 >= kBfF1H * kBfGW &&
                   128 * kBfMt2 >= kBfF2H * kBfGW &&
-                  128 * kBfMt1 + 2 * kBfGW + 2 <= kBfCellsX + 4 * kBfGroup1 / 16,
+                  kBfSX + 3 * kBfGroupX + (128 * kBfMt1 + 2 * kBfGW + 2) * 16 <=
+                      kBfSBar &&
+                  kBfSF1 + 3 * kBfGroup1 + (128 * kBfMt2 + 2 * kBfGW + 2) * 16 <=
+                      kBfSBar,
               "M-tiles cover the grid, and their reads stay in shared memory");
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
@@ -1002,10 +1014,9 @@ __device__ __forceinline__ void reflect_border(unsigned char* f, int group,
 
 // sigmoid(conv3) at pixel p of the tile, if it lies in the image: f2's 3x3
 // positions around it (8 bf16 channels in 16 bytes a position) by the
-// bf16-rounded weights w3 [ci][tap] in f32 FMAs.
+// bf16-rounded weights w3 [tap][ci] (shared memory) in f32 FMAs.
 __device__ __forceinline__ void conv3_pixel(const unsigned char* f2,
-                                            const float (&w3)[kC2 * kTaps],
-                                            float bias3,
+                                            const float* w3, float bias3,
                                             float* __restrict__ out, Tile tl,
                                             int H, int W, int p) {
   const int i = p / kBfTileW, j = p - i * kBfTileW;
@@ -1015,12 +1026,14 @@ __device__ __forceinline__ void conv3_pixel(const unsigned char* f2,
   for (int tap = 0; tap < kTaps; ++tap) {
     const uint4 v = *reinterpret_cast<const uint4*>(
         f2 + ((i + tap / 3) * kBfGW + j + tap % 3) * 16);
+    const float4 wa = reinterpret_cast<const float4*>(w3)[2 * tap];
+    const float4 wb = reinterpret_cast<const float4*>(w3)[2 * tap + 1];
+    const float wt[8] = {wa.x, wa.y, wa.z, wa.w, wb.x, wb.y, wb.z, wb.w};
     const uint32_t words[4] = {v.x, v.y, v.z, v.w};
 #pragma unroll
     for (int k = 0; k < 4; ++k) {
-      s = fmaf(__uint_as_float(words[k] << 16), w3[2 * k * kTaps + tap], s);
-      s = fmaf(__uint_as_float(words[k] & 0xFFFF0000u),
-               w3[(2 * k + 1) * kTaps + tap], s);
+      s = fmaf(__uint_as_float(words[k] << 16), wt[2 * k], s);
+      s = fmaf(__uint_as_float(words[k] & 0xFFFF0000u), wt[2 * k + 1], s);
     }
   }
   out[((int64_t)tl.n * H + tl.r0 + i) * W + tl.c0 + j] = sigmoid(s);
@@ -1114,9 +1127,9 @@ decoder_tail_bf16_kernel(const __grid_constant__ CUtensorMap x_map,
   asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;" ::"n"(kBfConsumerRegs));
   stage_wgmma_b<kC1>(sm + kBfSB1, w1, tid, kBfConsumers);
   stage_wgmma_b<kC2>(sm + kBfSB2, w2, tid, kBfConsumers);
-  float* w3s = reinterpret_cast<float*>(sm + kBfSW3);
+  float* w3s = reinterpret_cast<float*>(sm + kBfSW3);   // [tap][ci]
   for (int i = tid; i < kC2 * kTaps; i += kBfConsumers) {
-    w3s[i] = round_bf16(__ldg(w3 + i));
+    w3s[(i % kTaps) * kC2 + i / kTaps] = round_bf16(__ldg(w3 + i));
   }
   // the weights, written by this proxy, are read by wgmma's
   asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
@@ -1227,19 +1240,8 @@ decoder_tail_bf16_kernel(const __grid_constant__ CUtensorMap x_map,
       consumers_sync();
     }
     probe.mark(8);
-    {
-      float w3r[kC2 * kTaps];
-#pragma unroll
-      for (int i = 0; i < kC2 * kTaps / 4; ++i) {
-        const float4 v = reinterpret_cast<const float4*>(w3s)[i];
-        w3r[4 * i] = v.x;
-        w3r[4 * i + 1] = v.y;
-        w3r[4 * i + 2] = v.z;
-        w3r[4 * i + 3] = v.w;
-      }
-      for (int p = tid; p < kBfTileH * kBfTileW; p += kBfConsumers) {
-        conv3_pixel(f2, w3r, bias3, out, tl, H, W, p);
-      }
+    for (int p = tid; p < kBfTileH * kBfTileW; p += kBfConsumers) {
+      conv3_pixel(f2, w3s, bias3, out, tl, H, W, p);
     }
     probe.mark(9);
   }

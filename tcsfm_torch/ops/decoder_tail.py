@@ -22,8 +22,10 @@ Two precisions, chosen by ``x``'s dtype:
 * bfloat16 x (a bfloat16 depth net): what the TPU kernel computes
   (``_tail_forward``: bf16 operands into f32 accumulators, f32 biases,
   bf16 intermediate maps): ``decoder_tail_plain_bf16`` and the bf16
-  kernel on ``mma.sync`` bf16. The disparity comes out float32, as the
-  Pallas kernel's does; ``make_tail_apply`` casts it to the net's dtype.
+  kernel, x fed by TMA and its two wide convs on ``wgmma`` bf16 (the
+  design is in the source's header). The disparity comes out float32, as
+  the Pallas kernel's does; ``make_tail_apply`` casts it to the net's
+  dtype.
   On the CPU its backward is the same f32 recomputation.
 
 The TPU kernel took the upconv's output in its subpixel phase layout

@@ -8,14 +8,14 @@ given dtype (the f32 kernel, or the bf16 one on bf16 x) at the coupled
 forward's shape [18, 32, 192, 640]: its time (CUDA events), its largest
 difference from its plain version, and the share of warp 0's clock cycles
 in each phase of the kernel, summed over every block. Then the rates of the
-tensor-core instructions the kernel could use on this card, the ceiling of
-its tensor-core phases: for float32 ``mma.sync.m16n8k8`` TF32; for
-bfloat16 ``mma.sync.m16n8k16`` bf16 (8 independent MMAs a warp, 8 warps a
-block, one block an SM) and ``wgmma`` m64n32k16 and m64n8k16 bf16 with A
-from registers (two warpgroups a block, 4 independent accumulators each),
-after checking the kernel's wgmma building blocks (``ldmatrix`` fragments,
-the weights' staged layout, the descriptors) against a float64 product.
-Needs the card.
+tensor-core instructions on this card: for float32 ``mma.sync.m16n8k8``
+TF32, the f32 kernel's; for bfloat16 ``mma.sync.m16n8k16`` bf16 (8
+independent MMAs a warp, 8 warps a block, one block an SM) and the bf16
+kernel's ``wgmma`` m64n32k16 and m64n8k16 with both operands in shared
+memory (two warpgroups a block, 4 independent accumulators each), after
+checking the kernel's wgmma building blocks (its grids' group layout read
+from a one-position shift, the weights' staged layout, the descriptors)
+against a float64 product. Needs the card.
 """
 
 from __future__ import annotations
@@ -218,8 +218,9 @@ def wgmma_rate(lib) -> None:
         ms = _events_ms(lambda: _raise_on(lib.tcsfm_wgmma_rate(
             out.data_ptr(), n, sms, WGMMA_ITERS, stream), "wgmma rate"), 3)
         flops = 2 * 64 * n * 16 * 4 * 8 * WGMMA_ITERS * 2 * sms
-        print(f"wgmma m64n{n}k16 bf16 (A from registers), two warpgroups of "
-              f"4 independent accumulators on each of {sms} SMs: "
+        print(f"wgmma m64n{n}k16 bf16 (both operands in shared memory), two "
+              f"warpgroups of 4 independent accumulators on each of {sms} "
+              f"SMs: "
               f"{flops / ms / 1e9:.1f} TFLOP/s")
 
 

@@ -842,14 +842,18 @@ def test_golden_warm_start_gate_on_card(cuda, tmp_path):
     """``golden_eval --warm_start_gate`` at the CLI's defaults: phase A
     (``--synthetic --device cpu`` in a subprocess, 5 epochs at 64x96) on
     the card's host CPU, phase B on the card, ``native`` continuing in
-    bfloat16 beside ``match`` in float32. Its VO parity gates and its PFT
-    loss parity gate (card vs CPU from the same weights) must pass. The PFT t-ATE is held to the
-    CPU's own spread: the card's gap to the CPU's t-ATE within
-    ``SPREAD_FACTOR`` x the larger gap of the same PFT on the CPU with the
-    test images one ulp up or down, at least the CLI's gate (0.050, set
-    <10% above the JAX package's TPU reading 0.046). The continued-training
-    gates (calibrated on the JAX package's TPU run) are printed beside the
-    same continuation on the CPU."""
+    bfloat16 beside ``match`` in float32. Its VO parity gates (card vs CPU
+    from the same weights) must pass. PFT's t-ATE and last loss are held to
+    the CPU's own spread: the card's relative gap to the CPU's value within
+    ``SPREAD_FACTOR`` x the larger relative gap of the same PFT on the CPU
+    with the test images one ulp up or down, at least the CLI's gate (t-ATE
+    0.050, set <10% above the JAX package's TPU reading 0.046; loss 0.045,
+    the JAX package's default, whose verdict is printed beside the limit):
+    f32 PFT does not reproduce its loss past ~1e-2 under one-ulp changes,
+    so a fixed 0.045 fails card machines whose f32 PFT is sound. The last
+    loss scaled by 1.5 (a planted fault) must fail that limit. The
+    continued-training gates (calibrated on the JAX package's TPU run) are
+    printed beside the same continuation on the CPU."""
     import dataclasses
     import json
 
@@ -871,28 +875,41 @@ def test_golden_warm_start_gate_on_card(cuda, tmp_path):
     _, seq = golden_eval.synthetic_data(args)
     state = create_train_state(cfg, device="cpu", steps_per_epoch=32)
     load_checkpoint(warm, state)
-    spread = 0.0
+    spread = loss_spread = 0.0
     for direction in (2.0, -1.0):
         moved = dataclasses.replace(seq, images=np.nextafter(
             seq.images, np.float32(direction)))
-        _, ate, _ = golden_eval._run_pft(cfg, state.depth_net,
-                                         state.pose_net, moved, args,
-                                         torch.device("cpu"))
+        _, ate, losses = golden_eval._run_pft(cfg, state.depth_net,
+                                              state.pose_net, moved, args,
+                                              torch.device("cpu"))
         spread = max(spread, abs(ate - cpu["ate_pft_opt"])
                      / cpu["ate_pft_opt"])
+        loss_spread = max(loss_spread, abs(float(losses[-1])
+                                           - cpu["pft_loss_last"])
+                          / abs(cpu["pft_loss_last"]))
     limit = max(args.warm_pft_ate_gate, SPREAD_FACTOR * spread)
+    loss_limit = max(args.warm_pft_loss_gate, SPREAD_FACTOR * loss_spread)
+    planted = (abs(1.5 * out["pft_loss_last_tpu"] - cpu["pft_loss_last"])
+               / abs(cpu["pft_loss_last"]))
     cont = golden_eval.continue_training(warm, args, torch.device("cpu"))
     print(f"PFT t-ATE card vs CPU {out['pft_ate_delta_rel']:.4f}; the CPU's "
-          f"own one-ulp spread {spread:.4f}, limit {limit:.4f}; continued "
+          f"own one-ulp spread {spread:.4f}, limit {limit:.4f}; PFT last "
+          f"loss card vs CPU {out['pft_loss_delta_rel']:.4f}; the CPU's own "
+          f"one-ulp spread {loss_spread:.4f}, limit {loss_limit:.4f} (the "
+          f"CLI's pft_loss_parity at {args.warm_pft_loss_gate}: "
+          f"{out['gates']['pft_loss_parity']}); the loss scaled by 1.5: "
+          f"{planted:.4f}; continued "
           f"training on the card: loss ratio "
           f"{out['variants']['match']['loss_ratio']:.4f}, rot ratio "
           f"{out['variants']['match']['rot_ratio']:.4f}; on the CPU: loss "
           f"ratio {cont['loss_ratio']:.4f}, rot ratio "
           f"{cont['rot_ratio']:.4f} (gates {args.warm_loss_gate}, "
           f"{args.warm_rot_gate})")
-    for gate in ("vo_pose_parity", "vo_ate_parity", "pft_loss_parity"):
+    for gate in ("vo_pose_parity", "vo_ate_parity"):
         assert out["gates"][gate], (gate, out)
     assert out["pft_ate_delta_rel"] <= limit
+    assert out["pft_loss_delta_rel"] <= loss_limit
+    assert planted > loss_limit
 
 
 def test_flow_pair_on_card(cuda):
