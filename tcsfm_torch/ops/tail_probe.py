@@ -220,8 +220,7 @@ def wgmma_rate(lib) -> None:
         flops = 2 * 64 * n * 16 * 4 * 8 * WGMMA_ITERS * 2 * sms
         print(f"wgmma m64n{n}k16 bf16 (both operands in shared memory), two "
               f"warpgroups of 4 independent accumulators on each of {sms} "
-              f"SMs: "
-              f"{flops / ms / 1e9:.1f} TFLOP/s")
+              f"SMs: {flops / ms / 1e9:.1f} TFLOP/s")
 
 
 def main(argv=None) -> None:
