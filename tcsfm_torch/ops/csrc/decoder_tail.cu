@@ -656,23 +656,28 @@ decoder_tail_kernel(const float* __restrict__ x, const float* __restrict__ w1,
 //    take their reflection's values (reflect_border). With A from
 //    registers instead (ldmatrix at per-row addresses, which needed an
 //    80-byte cell stride) the probe's build ran 377-384 us, against 361-369
-//    us here. At N = 32 and 8 both forms are bound by shared memory: a
-//    wgmma m64n32k16 reads 3 KB of operands for 65,536 operations (the
-//    card's rate for it with both operands in shared memory 658.8 TFLOP/s,
-//    with A held in registers 979.7; m64n8k16 219.6 and 301.4:
-//    ops/tail_probe.py).
+//    us for this form (both with an ELU on the bare fast exponential). At
+//    N = 32 and 8 both forms are bound by shared memory: a wgmma m64n32k16
+//    reads 3 KB of operands for 65,536 operations (the card's rate for it
+//    with both operands in shared memory: ops/tail_probe.py).
 // 4. Barriers. The 256 consumer threads meet at three named barriers a
 //    tile (elu(x), f1, f2 complete; two more at border tiles, around the
 //    reflect copies) where the first version took five block-wide ones,
-//    and the producer waits on none of them. conv3 (8 -> 1) and the sigmoid
-//    stay on f32 FMAs, two output pixels a thread.
+//    and the producer waits on none of them. Each thread fences its
+//    stores of elu(x) and f1 to the async proxy (fence_async_smem) before
+//    the barrier after which wgmma reads them. conv3 (8 -> 1) and the
+//    sigmoid stay on f32 FMAs, two output pixels a thread.
 // Halo recompute: conv1 and conv2 at 768 positions each, conv3 at 512
 // pixels, for 512 outputs: 1.50x the multiply-adds. A taller tile would
 // recompute less, but its ring and grids do not fit the 227 KB a block
 // has (24x32: 272 KB). Shared memory: 206,016 bytes, one block an SM. The
-// ELU below 0 is the fast exponential (ex2.approx.ftz) less 1: its result
-// is rounded to bf16, whose step (2^-9 relative) the exponential's ~2^-22
-// does not reach.
+// ELUs are elu_bf16: the accuracy of the f32 kernel's elu(), whose
+// polynomial near 0 keeps the relative error small where exp(v) - 1
+// cancels, in fewer instructions. They are issue-bound SIMT work beside the
+// wgmmas, and they take registers: ptxas compiles the kernel to 168
+// registers a thread (-Xptxas -v; the consumers' setmaxnreg to 240
+// notwithstanding) and spilled an unrolled conv's hoisted descriptors once
+// the ELUs were exact, so conv_wgmma walks its k-steps at run time.
 
 constexpr int kBfTileH = 16;
 constexpr int kBfTileW = 32;
@@ -747,16 +752,27 @@ __device__ __forceinline__ float round_bf16(float v) {
   return __bfloat162float(__float2bfloat16_rn(v));
 }
 
-// 2^v, MUFU.EX2 without the denormal handling of exp2f/__expf (results below
-// 2^-126 flush to 0, which the ELU's -1 makes nothing of)
-__device__ __forceinline__ float ex2_ftz(float v) {
-  float r;
-  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(r) : "f"(v));
-  return r;
-}
-
-__device__ __forceinline__ float elu_fast(float v) {
-  return v > 0.0f ? v : ex2_ftz(v * 1.4426950408889634f) - 1.0f;
+// ELU for the bf16 kernel, as accurate as elu() in fewer instructions: below
+// -0.25 the fast exponential less 1, as elu() takes it there (the result
+// exceeds 0.22 in magnitude, so the exponential's few-ulp error stays near
+// 1e-6 of it); above, v + u^2 q(u) with u = min(v, 0), where q is a
+// degree-3 minimax fit of (expm1(u) - u) / u^2 on [-0.25, 0] (relative
+// error < 7e-8 of expm1 in f32, tests/test_torch_bf16_tail.py), which gives
+// v itself above 0. Every ELU of the tail (x, f1, f2) goes through it, so
+// its instructions weigh: a select fewer than elu(), and an exponential
+// without the denormal scaling (below -87 it flushes to 0, and the result
+// is -1 either way).
+constexpr float kEluC2 = 0.4999999702f, kEluC3 = 0.1666615009f,
+                kEluC4 = 0.0415637195f, kEluC5 = 0.0076686833f;
+__device__ __forceinline__ float elu_bf16(float v) {
+  const float u = fminf(v, 0.0f);
+  float q = fmaf(u, kEluC5, kEluC4);
+  q = fmaf(q, u, kEluC3);
+  q = fmaf(q, u, kEluC2);
+  const float p = fmaf(q * u, u, v);
+  float e;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(e) : "f"(v * 1.4426950408889634f));
+  return v < -0.25f ? e - 1.0f : p;
 }
 
 // --- Hopper building blocks: wgmma with both operands in shared memory,
@@ -897,6 +913,12 @@ __device__ __forceinline__ void tma_load_3d(uint32_t dst, const CUtensorMap* map
       : "memory");
 }
 
+// Orders this thread's ordinary shared-memory stores before the reads of
+// the async proxy (wgmma's descriptors, TMA) that follow a barrier.
+__device__ __forceinline__ void fence_async_smem() {
+  asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+}
+
 // The consumers' barrier (named barrier 1, the producer warp not in it).
 __device__ __forceinline__ void consumers_sync() {
   asm volatile("bar.sync 1, %0;" ::"n"(kBfConsumers) : "memory");
@@ -981,7 +1003,7 @@ __device__ __forceinline__ void convert_item(unsigned char* xs,
   float v[8];
 #pragma unroll
   for (int k = 0; k < 8; ++k) {
-    v[k] = elu_fast(__bfloat162float(src[k * kBfPlane]));
+    v[k] = elu_bf16(__bfloat162float(src[k * kBfPlane]));
   }
   *reinterpret_cast<uint4*>(xs + (2 * half + g8) * kBfGroupX + cell * 16) =
       make_uint4(pack_bf16(v[0], v[1]), pack_bf16(v[2], v[3]),
@@ -1039,26 +1061,29 @@ __device__ __forceinline__ void conv3_pixel(const unsigned char* f2,
   out[((int64_t)tl.n * H + tl.r0 + i) * W + tl.c0 + j] = sigmoid(s);
 }
 
-// A conv of this warpgroup's kMt M-tiles on wgmma: acc[j] += A B over the
-// 18 k-steps, A through desc_a[j] (64 consecutive grid positions of the
-// source, kGroup bytes a group) plus the k-step's tap shift and channel
-// groups, B through desc_b (stage_wgmma_b's slices, 2 kN 16-byte units
-// apart). All 18 kMt wgmmas go out before the one wait.
+// A conv of kMt consecutive M-tiles on wgmma: acc[j] += A B over the 18
+// k-steps, A through desc_a (the first M-tile: 64 consecutive grid
+// positions of the source, kGroup bytes a group) plus the M-tile's 64
+// positions, the k-step's tap shift and its channel groups, B through
+// desc_b (stage_wgmma_b's slices, 2 kN 16-byte units apart). The offsets
+// are constants added to one descriptor (its start address field does not
+// overflow in 227 KB). All 18 kMt wgmmas go out before the one wait.
 template <int kN, int kMt, int kGroup>
 __device__ __forceinline__ void conv_wgmma(float (&acc)[kMt][kN / 2],
-                                           const uint64_t (&desc_a)[kMt],
-                                           uint64_t desc_b) {
+                                           uint64_t desc_a, uint64_t desc_b) {
 #pragma unroll
   for (int j = 0; j < kMt; ++j) fence_regs(acc[j]);
   wgmma_fence();
-#pragma unroll
+  // k-steps at run time: unrolled, ptxas hoists all 18 kMt descriptors out
+  // of the tile loop and spills them once the ELUs take registers
+#pragma unroll 1
   for (int s = 0; s < kBfKSteps; ++s) {
     const int tap = s >> 1;
     const uint32_t a_off =
         (((tap / 3) * kBfGW + tap % 3) * 16 + (s & 1) * 2 * kGroup) >> 4;
 #pragma unroll
     for (int j = 0; j < kMt; ++j) {
-      wgmma_bf16<kN>(acc[j], desc_a[j] + a_off,
+      wgmma_bf16<kN>(acc[j], desc_a + (uint64_t)(64 * j + a_off),
                      desc_b + (uint64_t)(2 * kN * s));
     }
   }
@@ -1131,8 +1156,7 @@ decoder_tail_bf16_kernel(const __grid_constant__ CUtensorMap x_map,
   for (int i = tid; i < kC2 * kTaps; i += kBfConsumers) {
     w3s[(i % kTaps) * kC2 + i / kTaps] = round_bf16(__ldg(w3 + i));
   }
-  // the weights, written by this proxy, are read by wgmma's
-  asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+  fence_async_smem();    // the weights are read by wgmma
   consumers_sync();
   const int wg = warp >> 2, wl = warp & 3;
   const int g = lane >> 2, t = lane & 3;
@@ -1141,19 +1165,12 @@ decoder_tail_bf16_kernel(const __grid_constant__ CUtensorMap x_map,
   unsigned char* f2 = sm + kBfSF2;
   const uint64_t desc1 = wgmma_desc(smem_addr(sm + kBfSB1), kWgLbo, kWgSbo);
   const uint64_t desc2 = wgmma_desc(smem_addr(sm + kBfSB2), kWgLbo, kWgSbo);
-  // A: this warpgroup's M-tiles of consecutive grid positions, 8 of them
-  // (16 bytes apart) a core matrix, the groups kBfGroup* apart along K
-  uint64_t desc_x[kBfMt1], desc_f1[kBfMt2];
-#pragma unroll
-  for (int j = 0; j < kBfMt1; ++j) {
-    desc_x[j] = wgmma_desc(smem_addr(xs + (kBfMt1 * wg + j) * 64 * 16),
-                           kBfGroupX, 128);
-  }
-#pragma unroll
-  for (int j = 0; j < kBfMt2; ++j) {
-    desc_f1[j] = wgmma_desc(smem_addr(f1 + (kBfMt2 * wg + j) * 64 * 16),
-                            kBfGroup1, 128);
-  }
+  // A: this warpgroup's first M-tile of consecutive grid positions, 8 of
+  // them (16 bytes apart) a core matrix, the groups kBfGroup* apart along K
+  const uint64_t desc_x =
+      wgmma_desc(smem_addr(xs + kBfMt1 * wg * 64 * 16), kBfGroupX, 128);
+  const uint64_t desc_f1 =
+      wgmma_desc(smem_addr(f1 + kBfMt2 * wg * 64 * 16), kBfGroup1, 128);
   const float bias3 = __ldg(b3);
   BfProbe probe;
   int q = 0;    // stages consumed; the q-th lies in stage q % 2
@@ -1170,6 +1187,7 @@ decoder_tail_bf16_kernel(const __grid_constant__ CUtensorMap x_map,
       mbar_arrive(bars + 16 + 8 * (q & 1));
       probe.mark(1);
     }
+    fence_async_smem();
     consumers_sync();    // elu(x) complete
     probe.mark(2);
 
@@ -1196,18 +1214,20 @@ decoder_tail_bf16_kernel(const __grid_constant__ CUtensorMap x_map,
           for (int n8 = 0; n8 < 4; ++n8) {
             *reinterpret_cast<uint32_t*>(f1 + n8 * kBfGroup1 + m * 16 +
                                          4 * t) =
-                pack_bf16(elu_fast(acc[j][4 * n8 + 2 * r]),
-                          elu_fast(acc[j][4 * n8 + 2 * r + 1]));
+                pack_bf16(elu_bf16(acc[j][4 * n8 + 2 * r]),
+                          elu_bf16(acc[j][4 * n8 + 2 * r + 1]));
           }
         }
       }
     }
     probe.mark(4);
+    fence_async_smem();
     consumers_sync();    // f1 complete
     if (tl.r0 == 0 || tl.c0 == 0 || tl.r0 + kBfF1H - 2 >= H ||
         tl.c0 + kBfGW - 2 >= W) {
       reflect_border<4>(f1, kBfGroup1, kBfF1H, tl.r0 - 2, tl.c0 - 2, H, W,
                         tid);
+      fence_async_smem();
       consumers_sync();
     }
     probe.mark(5);
@@ -1228,7 +1248,7 @@ decoder_tail_bf16_kernel(const __grid_constant__ CUtensorMap x_map,
         for (int r = 0; r < 2; ++r) {
           const int m = (kBfMt2 * wg + j) * 64 + 16 * wl + g + 8 * r;
           *reinterpret_cast<uint32_t*>(f2 + m * 16 + 4 * t) = pack_bf16(
-              elu_fast(acc[j][2 * r]), elu_fast(acc[j][2 * r + 1]));
+              elu_bf16(acc[j][2 * r]), elu_bf16(acc[j][2 * r + 1]));
         }
       }
     }
@@ -1249,49 +1269,6 @@ decoder_tail_bf16_kernel(const __grid_constant__ CUtensorMap x_map,
 }
 
 #ifdef TCSFM_TAIL_PROBE
-// The probe's check of the kernel's wgmma building blocks (ops/tail_probe.py),
-// one warpgroup: d [64, kN] = a[1:65] (bf16 [65, 32]) times w[:, :, 0, 0]^T
-// (kN of OIHW f32 weights [kN, 32, 3, 3], rounded to bf16), a staged as the
-// kernel's grids are (8-channel groups, 16 bytes a row, the groups 65 rows
-// apart) and read from row 1 (a shift of one position, as a tap's), the
-// weights in stage_wgmma_b's layout: k-steps 0 and 1 (tap 0, both halves).
-template <int kN>
-__global__ void __launch_bounds__(128)
-    wgmma_check_kernel(const __nv_bfloat16* a, const float* w, float* d) {
-  constexpr int kGroup = 65 * 16;
-  __shared__ __align__(128) unsigned char sa[4 * kGroup];
-  __shared__ __align__(128) unsigned char sb[kBfKSteps * 32 * kN];
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  for (int i = tid; i < 65 * 32; i += 128) {
-    const int row = i >> 5, ch = i & 31;
-    *reinterpret_cast<__nv_bfloat16*>(sa + (ch >> 3) * kGroup + row * 16 +
-                                      (ch & 7) * 2) = a[i];
-  }
-  stage_wgmma_b<kN>(sb, w, tid, 128);
-  asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
-  __syncthreads();
-  float acc[kN / 2] = {};
-  const uint64_t desc_a = wgmma_desc(smem_addr(sa + 16), kGroup, 128);
-  const uint64_t desc_b = wgmma_desc(smem_addr(sb), kWgLbo, kWgSbo);
-  fence_regs(acc);
-  wgmma_fence();
-  wgmma_bf16<kN>(acc, desc_a, desc_b);
-  wgmma_bf16<kN>(acc, desc_a + (2 * kGroup >> 4), desc_b + 2 * kN);
-  wgmma_commit();
-  wgmma_wait<0>();
-  fence_regs(acc);
-  const int g = lane >> 2, t = lane & 3;
-#pragma unroll
-  for (int j = 0; j < kN / 8; ++j) {
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      const int m = 16 * warp + g + 8 * r;
-      d[m * kN + 8 * j + 2 * t] = acc[4 * j + 2 * r];
-      d[m * kN + 8 * j + 2 * t + 1] = acc[4 * j + 2 * r + 1];
-    }
-  }
-}
-
 // The rate of wgmma m64nNk16 bf16 with both operands from shared memory:
 // two warpgroups a block, each with 4 independent accumulators (as the
 // tail's convs keep several M-tiles in flight), 8 k-steps into each per
@@ -1305,7 +1282,7 @@ __global__ void __launch_bounds__(256) wgmma_rate_kernel(float* out,
     reinterpret_cast<uint32_t*>(sb)[i] = 0x3c003c00u;
   }
   for (int i = threadIdx.x; i < 64 * 8; i += 256) sa[i] = 0x3c003c00u;
-  asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+  fence_async_smem();
   __syncthreads();
   float acc[4][kN / 2] = {};
   const uint64_t desc_a = wgmma_desc(smem_addr(sa), 64 * 16, 128);
@@ -1483,22 +1460,6 @@ extern "C" int tcsfm_decoder_tail_bf16_probe(unsigned long long* cycles,
   }
   return (int)cudaMemcpyFromSymbol(cycles, tail_bf16_probe_cycles,
                                    sizeof(tail_bf16_probe_cycles));
-}
-
-// d [64, n] = a [64, 32] w[:, :, 0, 0]^T through wgmma_check_kernel, n 32
-// or 8.
-extern "C" int tcsfm_wgmma_check(const void* a, const float* w, float* d,
-                                 int n, void* stream) {
-  const auto* ab = static_cast<const __nv_bfloat16*>(a);
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (n == 32) {
-    wgmma_check_kernel<32><<<1, 128, 0, st>>>(ab, w, d);
-  } else if (n == 8) {
-    wgmma_check_kernel<8><<<1, 128, 0, st>>>(ab, w, d);
-  } else {
-    return (int)cudaErrorInvalidValue;
-  }
-  return (int)cudaGetLastError();
 }
 
 // wgmma_rate_kernel<n> on `blocks` blocks of 256 threads, n 32 or 8.

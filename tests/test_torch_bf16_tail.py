@@ -28,6 +28,7 @@ largest.
 """
 
 import os
+import re
 import sys
 
 import jax
@@ -42,6 +43,7 @@ from tcsfm.models.depth import DepthNet as JaxDepthNet
 from tcsfm.train.trainer import create_train_state
 from tcsfm_torch.models.convert import depth_state_dict
 from tcsfm_torch.models.depth import DepthNet, make_tail_apply
+from tcsfm_torch.ops import _build
 from tcsfm_torch.ops import decoder_tail as dt
 from test_torch_bf16 import check_parity
 from test_torch_decoder_tail import (_OnCard, _condition, _jax_weights,
@@ -129,6 +131,41 @@ def test_bf16_launch_goes_to_its_entry_point(monkeypatch):
     assert out.dtype == torch.float32 and tuple(out.shape) == (2, 6, 8, 1)
     assert calls == [(x.data_ptr(), *[t.data_ptr() for t in ws],
                       out.data_ptr(), 2, 6, 8, 3, 77)]
+
+
+def _fma32(a, b, c):
+    """fmaf in float32: the float64 product of two float32 values is exact."""
+    return (a.astype(np.float64) * b + c).astype(np.float32)
+
+
+def test_bf16_kernel_elu_polynomial_matches_expm1():
+    """``elu_bf16`` in csrc/decoder_tail.cu, its branch above -0.25 (its
+    coefficients read from the source) in float32 steps as the card takes
+    them: within 1e-7 of expm1 relative on [-0.25, 0] (every negative bf16
+    there, and float32 values down to 1e-30), where exp(v) - 1 would
+    cancel; v itself, bit for bit, above 0. (Below -0.25 it is the fast
+    exponential less 1, as the f32 kernel's elu(); that runs only on the
+    card.)"""
+    src = (_build.CSRC / "decoder_tail.cu").read_text()
+    c = {k: np.float32(v) for k, v in
+         re.findall(r"\b(kEluC\d) = ([0-9.]+)f", src)}
+    assert sorted(c) == ["kEluC2", "kEluC3", "kEluC4", "kEluC5"]
+    rng = np.random.default_rng(0)
+    neg = (np.arange(0x8000, 0x10000, dtype=np.uint32) << 16).view(np.float32)
+    v = np.concatenate([
+        neg[(neg > -0.25) & (neg < 0)], -0.25 * rng.random(200_000),
+        -np.exp(rng.uniform(np.log(1e-30), np.log(0.25), 200_000)),
+        np.float32([-0.25]), np.exp(rng.uniform(-30, 10, 1000)),
+        np.float32([0.0])]).astype(np.float32)
+    u = np.minimum(v, np.float32(0))
+    q = _fma32(u, c["kEluC5"], c["kEluC4"])
+    q = _fma32(q, u, c["kEluC3"])
+    q = _fma32(q, u, c["kEluC2"])
+    p = _fma32((q * u).astype(np.float32), u, v)
+    below = v < 0
+    ref = np.expm1(v[below].astype(np.float64))
+    assert (np.abs(p[below] - ref) / np.abs(ref)).max() <= 1e-7
+    assert np.array_equal(p[~below], v[~below])
 
 
 @pytest.mark.parametrize("case", ["f16", "bf16_weights"])
