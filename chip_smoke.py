@@ -393,6 +393,27 @@ PFT_FIELDS = ("losses", "poses_opt", "disp_opt")
 PFT_SMALL = (2, 64, 96, 3)
 PFT_CPU_LOSS_TOL = 1e-4
 PFT_CPU_TOL = 0.1
+# phase "bf16_eval": the bfloat16 PFT and evaluation path. PFT at phase
+# "pft"'s setting on phase "bf16"'s nets (seed 3, trained-like), encoder
+# mode: the launches a step, the kernel- vs plain-sampler call held by
+# PFT's own spread rule read in bf16 (bf16_pft_parity), and
+# BF16_PFT_TIMED calls timed in turns with the f32 call of the
+# same weights; one window batch each of 'depth_pred' and 'bottleneck',
+# kernel vs plain within BF16_PFT_MODE_FACTOR x the plain call's spread
+# with its images one ulp up (at least PFT_TOL). Then the bf16 model
+# directory phase "bf16"'s cli.train wrote through evaluate_vo (the
+# drive's 64-frame cut, kernel, plain and plain with its images one ulp
+# up, and one timed pass over the whole drive), run_sequential_pft
+# --refiner ba (SEQ_FRAMES synthetic frames at 192x640), evaluate_depth_eigen
+# (the first BF16_EIGEN_FRAMES frames of the split phase "eval" writes, GT
+# as there) and evaluate_scannet (phase "eval"'s scene): each against its
+# plain-sampler run within seq_limit of that run's own one-ulp spread (run
+# alone, the phase writes what the earlier phases would have). Last, the 64x96
+# bf16 PFT first step (PFT_SMALL) card vs CPU within BF16_FRACTION x the
+# CPU's bf16-vs-f32 gap (tests/test_torch_bf16_pft*.py's rule)
+BF16_PFT_TIMED = 2
+BF16_PFT_MODE_FACTOR = 4
+BF16_EIGEN_FRAMES = 64
 # phase "sequence": the committed 1504-frame drive at 192x640 through
 # evaluate_vo (batch 8, 4 iterations: 1503 pair windows), a 64-frame cut
 # of it with the kernel and with the plain sampler, run_sequential_pft's
@@ -3234,6 +3255,485 @@ def phase_pft(torch, gs, cfg, build_models):
     return counts
 
 
+def bf16_pft_parity(torch, gs, pft, opt, batch, what):
+    """``pft_parity`` read in bf16: the kernel- vs plain-sampler first
+    step's gradients by phase "bf16"'s step rule (each tensor within
+    max(STEP_GRAD_TOL, STEP_SPREAD_FACTOR x the plain step's own spread,
+    the whole gradient's spread), the spread from the plain step with its
+    loss scaled by BF16_LOSS_SCALES: in bf16 one ulp on the loss moves
+    every tensor past STEP_GRAD_CAP, so phase "pft"'s cap and count of
+    widened tensors do not apply), the whole gradient within
+    STEP_SPREAD_FACTOR x its spread; then the whole call as phase "pft"
+    holds it (pft_call_readings), each field within max(PFT_TOL,
+    PFT_SPREAD_FACTOR x the plain call's own spread), uncapped. Returns
+    the worst gradient relative L2, the whole gradient's and its spread,
+    each field's (error, spread, limit), and the first loss's
+    difference."""
+    plain = gs.grid_sample_plain
+
+    def flat(grads):
+        return torch.cat([g.reshape(-1).double() for g in grads.values()])
+
+    with cudnn_deterministic(torch):
+        _, ours = pft_first_step(torch, opt, batch, gs.grid_sample)
+        _, ref = pft_first_step(torch, opt, batch, plain)
+        rescaled = [pft_first_step(torch, opt, batch, plain, c)[1]
+                    for c in BF16_LOSS_SCALES]
+    spread = {k: max(rel_l2(g, ref)[k] or 0.0 for g in rescaled)
+              for k in ref}
+    whole_spread = max(rel_l2_of(flat(g), flat(ref)) for g in rescaled)
+    worst = compare_grads(ours, ref, lambda k: max(
+        STEP_GRAD_TOL, STEP_SPREAD_FACTOR * spread[k], whole_spread),
+        f"{what}, first step")
+    whole = rel_l2_of(flat(ours), flat(ref))
+    check(whole <= STEP_SPREAD_FACTOR * whole_spread, f"{what}: the first "
+          f"step's whole gradient {whole} > {STEP_SPREAD_FACTOR} x its "
+          f"spread {whole_spread}")
+    readings, (loss0, ref_loss0) = pft_call_readings(torch, gs, pft, opt,
+                                                     batch)
+    first = abs(loss0 - ref_loss0)
+    check(first <= STEP_LOSS_TOL * abs(ref_loss0),
+          f"{what}: first loss differs by {first}")
+    fields = {}
+    for k, r in readings.items():
+        limit = max(PFT_TOL, PFT_SPREAD_FACTOR * r["spread"])
+        fields[k] = (r["rel_l2"], r["spread"], limit)
+        check(r["rel_l2"] <= limit, f"{what}: {k} kernel vs plain relative "
+              f"L2 {r['rel_l2']} > {limit} (plain call's own spread "
+              f"{r['spread']})")
+    return (worst, whole, whole_spread), fields, first
+
+
+def pft_modes_parity(torch, gs, pft, opt, batch):
+    """One bf16 PFT call of ``opt`` with the kernels and with the plain
+    sampler (cuDNN deterministic), and the plain call with its images one
+    ulp up: {field: (kernel vs plain, spread)} as relative L2."""
+    plain = gs.grid_sample_plain
+    with cudnn_deterministic(torch):
+        call = pft_results(opt.optimize_window(batch))
+        ref = pft_results(opt.optimize_window(batch, sampler=plain))
+        ulp = pft_results(opt.optimize_window(one_ulp_up(torch, batch),
+                                              sampler=plain))
+    for k in PFT_FIELDS:
+        check(bool(torch.isfinite(call[k]).all()), f"bf16 PFT {opt.mode}: "
+              f"{k} not finite")
+    return {k: (rel_l2_of(call[k], ref[k]), rel_l2_of(ulp[k], ref[k]))
+            for k in PFT_FIELDS}
+
+
+def bf16_pft_card_vs_cpu(torch, gs, pft, cfg, build_models):
+    """The 64x96 bf16 PFT first step (PFT_SMALL) on the card against the
+    CPU: the first loss and the first step's gradient (1 - cos over the
+    encoder's tensors), each within BF16_FRACTION x the CPU's own
+    bf16-vs-f32 gap. Returns the readings' text."""
+    import copy
+
+    from tcsfm_torch.config import PFTOptions
+
+    b, h, w, epochs = PFT_SMALL
+    small = PFTOptions(epochs=epochs, num_source_imgs=S)
+    cpu_batch = pft_batch(torch, b, h, w, seed=8, device="cpu")
+    card_batch = {k: v.cuda() for k, v in cpu_batch.items()}
+    steps = {}
+    for dtype in ("bfloat16", "float32"):
+        c = cfg.replace(compute_dtype=dtype)
+        nets = build_models(c, device="cpu",
+                            generator=torch.Generator().manual_seed(1))
+        condition_like_trained(nets[0], torch)
+        steps[dtype] = pft_first_step(torch, pft.PFTOptimizer(c, small,
+                                                              *nets),
+                                      cpu_batch, gs.grid_sample)
+        if dtype == "bfloat16":
+            card_opt = pft.PFTOptimizer(c, small, *(copy.deepcopy(n).cuda()
+                                                    for n in nets))
+            steps["card"] = pft_first_step(torch, card_opt, card_batch,
+                                           gs.grid_sample)
+
+    def flat(grads):
+        return torch.cat([g.reshape(-1).double().cpu()
+                          for g in grads.values()])
+
+    loss = {k: v[0].item() for k, v in steps.items()}
+    grads = {k: flat(v[1]) for k, v in steps.items()}
+    texts = [within_gap(abs(loss["card"] / loss["bfloat16"] - 1),
+                        abs(loss["bfloat16"] / loss["float32"] - 1),
+                        "bf16 PFT 64x96 card vs CPU: first loss"),
+             within_gap(one_minus_cos(grads["card"], grads["bfloat16"]),
+                        one_minus_cos(grads["bfloat16"], grads["float32"]),
+                        "bf16 PFT 64x96 card vs CPU: first step's gradient "
+                        "1 - cos")]
+    return (f"{h}x{w} B={b} S={S} bf16 PFT first step, card vs CPU (limit "
+            f"{BF16_FRACTION} x the CPU's bf16-vs-f32 gap): first loss "
+            f"{texts[0]}; gradient 1 - cos {texts[1]}")
+
+
+def phase_bf16_eval(torch, gs, cfg, build_models):
+    """The bfloat16 PFT and evaluation path on the card (see the
+    constants above BF16_PFT_TIMED). Returns the phase's launches (value,
+    d_coords, d_img, value+Jacobian) by path."""
+    import os
+    import shutil
+    from pathlib import Path
+
+    import numpy as np
+
+    from tcsfm_torch.cli import (evaluate_depth_eigen, evaluate_scannet,
+                                 evaluate_vo)
+    from tcsfm_torch.cli import run_sequential_pft as seq_pft
+    from tcsfm_torch.cli.common import load_config, load_nets
+    from tcsfm_torch.config import Config, PFTOptions
+    from tcsfm_torch.data.dataset import SequenceData
+    from tcsfm_torch.data.synthetic import make_synthetic_sequence
+    from tcsfm_torch.eval.vo import VOEvaluator
+    from tcsfm_torch.solver import pft
+    from tcsfm_torch.train.checkpoint import save_checkpoint
+
+    bf16 = torch.bfloat16
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    root = Path(__file__).resolve().parent
+    work = root / "build" / "bf16_eval"
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60).stdout.strip().splitlines()[0]
+    launches = {}
+
+    def counts():
+        return read_counts(gs) + (gs.LAUNCHES_FWD_GRADS,)
+
+    # 1. PFT in bf16 at phase "pft"'s setting, timed in turns with f32
+    cfgs = {"bfloat16": cfg.replace(compute_dtype="bfloat16"),
+            "float32": cfg}
+    batch = pft_batch(torch, PFT_B, H, W, seed=7, device="cuda")
+    opts = PFTOptions(epochs=PFT_EPOCHS, num_source_imgs=S)
+    opts_of = {}
+    for dtype, c in cfgs.items():
+        nets = build_models(c, device="cuda",
+                            generator=torch.Generator().manual_seed(3))
+        condition_like_trained(nets[0], torch)
+        opts_of[dtype] = pft.PFTOptimizer(c, opts, *nets, mode="encoder")
+    opt = opts_of["bfloat16"]
+    expected = pft_expected_launches(PFT_EPOCHS, ITERS)
+    zero_counts(gs)
+    res = opt.optimize_window(batch)
+    torch.cuda.synchronize()
+    got = counts()
+    launches["pft"] = got
+    check(got == expected + (0,), f"bf16 PFT: launches {got}, expected "
+          f"{expected}")
+    for k in PFT_FIELDS:
+        t = getattr(res, k)
+        check(bool(torch.isfinite(t).all()), f"bf16 PFT: {k} not finite")
+    steps, per_step = PFT_EPOCHS - 1, (ITERS, ITERS - 1, 1)
+    (worst, whole, whole_spread), fields, first = bf16_pft_parity(
+        torch, gs, pft, opt, batch, "bf16 PFT kernel vs plain sampler")
+    say("bf16_eval", f"PFT bf16 encoder {H}x{W} window batch {PFT_B} S={S} "
+        f"iters={ITERS} epochs={PFT_EPOCHS}: launches (value, d_coords, "
+        f"d_img, value+Jacobian) {got} = {steps} steps of {per_step} and the "
+        f"evaluation forward's {ITERS} value launches; losses "
+        f"{res.losses[0].item():.6f} -> {res.losses[-1].item():.6f}; kernel "
+        f"vs plain sampler (cuDNN deterministic): first loss diff "
+        f"{first:.3e}, first step's worst gradient relative L2 {worst:.3e}, "
+        f"the whole gradient {whole:.3e} (limit {STEP_SPREAD_FACTOR} x its "
+        f"spread {whole_spread:.3e}); the call " + ", ".join(
+            f"{k} {e:.3e} (spread {sp:.3e}, limit {lim:.3e})"
+            for k, (e, sp, lim) in fields.items()))
+    times = {d: [] for d in cfgs}
+    peak = dict.fromkeys(cfgs, 0)
+    for i in range(1 + BF16_PFT_TIMED):
+        for dtype in (("float32", "bfloat16") if i % 2 == 0
+                      else ("bfloat16", "float32")):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t = time.perf_counter()
+            opts_of[dtype].optimize_window(batch)
+            torch.cuda.synchronize()
+            peak[dtype] = max(peak[dtype], torch.cuda.max_memory_allocated())
+            if i >= 1:
+                times[dtype].append(time.perf_counter() - t)
+    med = {d: statistics.median(v) for d, v in times.items()}
+    say("bf16_eval", f"{card}: PFT encoder, bf16 vs f32 in turns "
+        f"({BF16_PFT_TIMED} calls each after 1, wall, synchronized): "
+        + "; ".join(f"{d} median {med[d] * 1e3:.3f} ms a call ({[round(v * 1e3, 3) for v in times[d]]}) -> "
+                    f"{med[d] * 1e3 / PFT_B:.3f} ms per window, "
+                    f"{PFT_B / med[d]:.3f} windows/s, peak memory "
+                    f"{peak[d] / 2**20:.1f} MiB" for d in med))
+    del opts_of
+    for mode in ("depth_pred", "bottleneck"):
+        mode_opt = pft.PFTOptimizer(cfgs["bfloat16"], opts, opt.depth_net,
+                                    opt.pose_net, mode=mode)
+        zero_counts(gs)
+        mode_opt.optimize_window(batch)
+        torch.cuda.synchronize()
+        launches[f"pft_{mode}"] = counts()
+        check(launches[f"pft_{mode}"] == expected + (0,),
+              f"bf16 PFT {mode}: launches {launches[f'pft_{mode}']}")
+        readings = pft_modes_parity(torch, gs, pft, mode_opt, batch)
+        text = ", ".join(
+            f"{k} {e:.3e} (spread {sp:.3e}, limit "
+            f"{max(PFT_TOL, BF16_PFT_MODE_FACTOR * sp):.3e})"
+            for k, (e, sp) in readings.items())
+        say("bf16_eval", f"PFT bf16 {mode}, one window batch: launches "
+            f"{launches[f'pft_{mode}']}; kernel vs plain sampler, relative "
+            f"L2: {text}")
+        check(all(e <= max(PFT_TOL, BF16_PFT_MODE_FACTOR * sp)
+                  for e, sp in readings.values()),
+              f"bf16 PFT {mode}: kernel vs plain {text}")
+    del mode_opt, opt
+
+    # 2. the bf16 model directory phase "bf16"'s cli.train wrote (run
+    # alone: phase "bf16"'s seeded nets saved with a bf16 config), and the
+    # inputs of phases "sequence" and "eval" (run alone: written here from
+    # the drive as they write them)
+    drive_npz = root / SEQ_DRIVE / "synthetic" / "sequence_data.npz"
+    seq = SequenceData.from_npz(str(drive_npz))
+    model_dir = str(root / "build" / "bf16_cli" / "run")
+    if not os.path.exists(os.path.join(model_dir, "config.json")):
+        model_dir = str(work / "model")
+        nets = build_models(cfgs["bfloat16"], device="cuda",
+                            generator=torch.Generator().manual_seed(3))
+        condition_like_trained(nets[0], torch)
+        save_checkpoint(model_dir, nets, epoch=1, best_val_loss=1.0,
+                        cfg=cfgs["bfloat16"], is_best=True)
+    seq_data = root / "build" / "sequence" / "data"
+    if not (seq_data / "cut_ulp").exists():
+        seq_data = work / "data"
+        cut = SequenceData(name="cut", intrinsics=seq.intrinsics[:SEQ_CUT],
+                           gt_poses=seq.gt_poses[:SEQ_CUT],
+                           vo_poses=seq.vo_poses[:SEQ_CUT],
+                           timestamps=seq.timestamps[:SEQ_CUT])
+        write_sequence(seq_data / "cut", cut, seq.images[:SEQ_CUT])
+        write_sequence(seq_data / "cut_ulp", cut, np.nextafter(
+            seq.images[:SEQ_CUT].astype(np.float32) / np.float32(255.0),
+            np.float32(2.0)))
+    dtype = load_config(model_dir, Config()).compute_dtype
+    depth_net, pose_net = load_nets(model_dir, "cuda")
+    check(dtype == "bfloat16" and depth_net.compute_dtype == bf16
+          and pose_net.compute_dtype == bf16, f"the model directory computes "
+          f"in {dtype}, nets {depth_net.compute_dtype}")
+    stated = (f"config.json compute_dtype {dtype}, the nets load_nets "
+              f"builds compute in {depth_net.compute_dtype}")
+
+    def three(name, run, read, gap):
+        """``run(which, sampler, ulp)`` for ``which`` "kernel", "plain"
+        (the plain sampler) and "plain_ulp" (the plain sampler on images one
+        ulp up): records the kernel run's launches; returns (kernel vs
+        plain, spread) by ``gap`` of what ``read(which)`` gives."""
+        out = {}
+        for which, sampler, ulp in (("kernel", gs.grid_sample, False),
+                                    ("plain", gs.grid_sample_plain, False),
+                                    ("plain_ulp", gs.grid_sample_plain,
+                                     True)):
+            zero_counts(gs)
+            quiet(lambda: run(which, sampler, ulp),
+                  work / f"{name}_{which}.log")
+            torch.cuda.synchronize()
+            if which == "kernel":
+                launches[name] = counts()
+            elif which == "plain":
+                check(counts() == (0, 0, 0, 0), f"{name}: the plain run "
+                      f"launched kernels")
+            out[which] = read(which)
+        err = gap(out["kernel"], out["plain"])
+        spread = gap(out["plain_ulp"], out["plain"])
+        check(all(e <= seq_limit(s) for e, s in zip(err, spread)),
+              f"bf16 {name} kernel vs plain: {err}, spread {spread}")
+        return err, spread
+
+    def spread_text(what, err, spread):
+        return "; ".join(f"{w} {e:.3e} (spread {s:.3e}, limit "
+                         f"{seq_limit(s):.3e})"
+                         for w, e, s in zip(what, err, spread))
+
+    # evaluate_vo: the drive's 64-frame cut, then one timed pass over the
+    # whole drive
+    def vo_seqs(which):
+        return "cut_ulp" if which == "plain_ulp" else "cut"
+
+    def vo_run(which, sampler, ulp):
+        args = evaluate_vo.parse_args(
+            ["--model_dir", model_dir, "--batch", str(SEQ_BATCH),
+             "--iterations", str(ITERS), "--data_dir", str(seq_data),
+             "--seqs", vo_seqs(which), "--save_preds",
+             str(work / f"vo_{which}")])
+        return evaluate_vo.run(args, depth_net, pose_net, "cuda",
+                               sampler=sampler)
+
+    err, spread = three(
+        "evaluate_vo", vo_run, lambda which: preds_of(
+            work / f"vo_{which}" / f"{vo_seqs(which)}_preds.npz"), preds_gap)
+    want = (-(-(SEQ_CUT - 1) // SEQ_BATCH) * (ITERS - 1), 0, 0, 0)
+    check(launches["evaluate_vo"] == want, f"bf16 evaluate_vo launches "
+          f"{launches['evaluate_vo']}, expected {want}")
+    ev = VOEvaluator(evaluate_vo.config_of(evaluate_vo.parse_args(
+        ["--model_dir", model_dir, "--iterations", str(ITERS)])),
+        depth_net, pose_net, device="cuda")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts(gs)
+    t = time.monotonic()
+    errs = quiet(lambda: ev.run_sequence(seq, batch_size=SEQ_BATCH),
+                 work / "vo_drive.log")
+    torch.cuda.synchronize()
+    wall = time.monotonic() - t
+    launches["evaluate_vo_drive"] = counts()
+    windows = len(seq) - 1
+    check(all(np.isfinite(errs[k][:2]).all() for k in (
+        "errors_unscaled", "errors_dnet", "errors_gt_scaled")),
+        "bf16 VO over the drive: errors not finite")
+    say("bf16_eval", f"{card}: evaluate_vo, bf16 model directory ({stated}):"
+        f" the 64-frame cut, kernel vs plain sampler: "
+        f"{spread_text(('pose vectors', 'DNet scales'), err, spread)}; "
+        f"launches {launches['evaluate_vo']}; the whole drive, {windows} "
+        f"pair windows, batch {SEQ_BATCH}, {ITERS} iterations: one pass "
+        f"{wall:.3f} s -> {windows / wall:.2f} windows/s, launches "
+        f"{launches['evaluate_vo_drive']}, peak memory "
+        f"{torch.cuda.max_memory_allocated() / 2**20:.1f} MiB; errors "
+        + ", ".join(f"{k} {errs[k]}" for k in (
+            "errors_unscaled", "errors_dnet", "errors_gt_scaled")))
+
+    # run_sequential_pft --refiner ba on SEQ_FRAMES synthetic frames
+    syn = make_synthetic_sequence(SEQ_FRAMES, (H, W), seed=13)
+    write_sequence(work / "data" / "ba_ulp", syn,
+                   np.nextafter(syn.images, np.float32(2.0)))
+
+    def ba_run(which, sampler, ulp):
+        src = (["--data_dir", str(work / "data"), "--seqs", "ba_ulp"] if ulp
+               else ["--synthetic", "--synthetic_size", str(H), str(W)])
+        args = seq_pft.parse_args(
+            ["--model_dir", model_dir, "--refiner", "ba",
+             "--synthetic_frames", str(SEQ_FRAMES), "--window_batch",
+             str(SEQ_WB), "--out_dir", str(work / f"ba_{which}")] + src)
+        return seq_pft.run(args, depth_net, pose_net, "cuda", sampler=sampler)
+
+    def ba_read(which):
+        key = "ba_ulp" if which == "plain_ulp" else "synthetic"
+        return np.load(work / f"ba_{which}" / f"{key}_pft.npz")
+
+    def ba_gap(a, b):
+        return tuple(float(np.abs(a[k].astype(np.float64) - b[k]).max())
+                     / max(float(np.abs(b[k]).max()), 1e-30)
+                     for k in ("pose_init", "pose_opt"))
+
+    err, spread = three("run_sequential_pft_ba", ba_run, ba_read, ba_gap)
+    want = seq_refiner_launches("ba", ITERS, SEQ_FRAMES - 2, SEQ_FRAMES)
+    check(launches["run_sequential_pft_ba"] == want, f"bf16 "
+          f"run_sequential_pft ba launches "
+          f"{launches['run_sequential_pft_ba']}, expected {want}")
+    say("bf16_eval", f"run_sequential_pft --refiner ba, bf16 model directory "
+        f"({stated}), {SEQ_FRAMES} frames at {H}x{W}: kernel vs plain "
+        f"sampler (relative to the largest): "
+        f"{spread_text(('pose_init', 'pose_opt'), err, spread)}; launches "
+        f"{launches['run_sequential_pft_ba']} (expected {want}); window_ba "
+        f"computes in float32 on the nets' bf16 depths")
+
+    # evaluate_depth_eigen on the first BF16_EIGEN_FRAMES of the split
+    # phase "eval" writes, its GT as there
+    n = BF16_EIGEN_FRAMES
+    cut = work / "eigen"
+    write_eigen_split(str(cut), seq.images[:n], seq.intrinsics,
+                      seq.gt_poses)
+    depths = np.load(str(drive_npz))["depths"]
+    write_gt_depths(str(cut / "gt_depths.npz"), depths[:n])
+    eigen_args = ["--model_dir", model_dir, "--data_dir", str(cut),
+                  "--gt_depths", str(cut / "gt_depths.npz"), "--batch",
+                  str(EVAL_BATCH)]
+
+    def eigen_run(which, sampler, ulp):
+        if not ulp:
+            return evaluate_depth_eigen.main(eigen_args + [
+                "--save_pred_disps", str(work / "eigen_disps.npy")])
+        args = evaluate_depth_eigen.parse_args(eigen_args)
+        from tcsfm_torch.utils import helpers
+        to_device = helpers.to_device
+
+        def moved(batch, keys, device, dtype=torch.float32):
+            out = to_device(batch, keys, device, dtype)
+            out["target_img"] = torch.nextafter(
+                out["target_img"], torch.full_like(out["target_img"], 2.0))
+            return out
+
+        helpers.to_device = moved
+        try:
+            np.save(work / "eigen_disps_ulp.npy",
+                    evaluate_depth_eigen.predict(args, depth_net, "cuda"))
+        finally:
+            helpers.to_device = to_device
+
+    eigen_disps = {}
+
+    def eigen_read(which):
+        path = work / ("eigen_disps_ulp.npy" if which == "plain_ulp"
+                       else "eigen_disps.npy")
+        eigen_disps[which] = np.load(path)
+        return eigen_disps[which]
+
+    def disp_gap(a, b):
+        return (float(np.abs(a - b).max()) / float(np.abs(b).max()),)
+
+    err, spread = three("evaluate_depth_eigen", eigen_run, eigen_read,
+                           disp_gap)
+    check(launches["evaluate_depth_eigen"] == (0, 0, 0, 0),
+          f"bf16 Eigen launched {launches['evaluate_depth_eigen']}")
+    check(eigen_disps["kernel"].dtype == np.float32, "bf16 Eigen: the "
+          f"saved disparities are {eigen_disps['kernel'].dtype}")
+    with open(work / "evaluate_depth_eigen_kernel.log") as f:
+        metrics = f.read().strip().splitlines()[-1]
+    say("bf16_eval", f"evaluate_depth_eigen, bf16 model directory "
+        f"({stated}), the first {n} frames of phase \"eval\"'s split: "
+        f"flip-merged disparities (float32 file) against the plain "
+        f"sampler's run (no sampler on this path: equal) "
+        f"{spread_text(('disparity',), err, spread)}; metrics {metrics}")
+
+    # evaluate_scannet on phase "eval"'s scene
+    scan = root / "build" / "eval" / "scannet"
+    if not (scan / "scene0_ulp.npz").exists():
+        scan, m = work / "scannet", EVAL_SCENE_FRAMES
+        os.makedirs(scan)
+        scene = dict(name="scene0", intrinsics=seq.intrinsics[:m],
+                     gt_poses=seq.gt_poses[:m], vo_poses=seq.gt_poses[:m],
+                     timestamps=seq.timestamps[:m], depths=depths[:m])
+        np.savez(scan / "scene0.npz", images=seq.images[:m], **scene)
+        np.savez(scan / "scene0_ulp.npz", images=np.nextafter(
+            seq.images[:m].astype(np.float32) / np.float32(255.0),
+            np.float32(2.0)), **dict(scene, name="scene0_ulp"))
+    del seq, depths
+    scannet_preds = {}
+
+    def scannet_run(which, sampler, ulp):
+        args = evaluate_scannet.parse_args(
+            ["--model_dir", model_dir, "--data_dir", str(scan), "--scenes",
+             "scene0_ulp" if ulp else "scene0", "--iterations",
+             str(EVAL_SCANNET_ITERS), "--frame_gap", str(EVAL_GAP),
+             "--batch", str(EVAL_BATCH)])
+        with recorded(evaluate_scannet, "predict", []) as pred:
+            res = evaluate_scannet.run(args, depth_net, pose_net, "cuda",
+                                       sampler=sampler)
+        scannet_preds[which] = (pred[0][1], res)
+        return res
+
+    err, spread = three("evaluate_scannet", scannet_run,
+                           lambda which: scannet_preds[which][0], scannet_gap)
+    windows = EVAL_SCENE_FRAMES - 2 * EVAL_GAP
+    want = (-(-windows // EVAL_BATCH) * (EVAL_SCANNET_ITERS - 1), 0, 0, 0)
+    check(launches["evaluate_scannet"] == want, f"bf16 evaluate_scannet "
+          f"launches {launches['evaluate_scannet']}, expected {want}")
+    res = scannet_preds["kernel"][1]
+    say("bf16_eval", f"evaluate_scannet, bf16 model directory ({stated}), "
+        f"{windows} windows: kernel vs plain sampler "
+        f"{spread_text(('disparities', 'pose vectors'), err, spread)}; "
+        f"launches {launches['evaluate_scannet']} (expected {want}); depth "
+        f"{res['depth']}, pose {res['pose']}")
+
+    # 3. the 64x96 bf16 PFT first step, card vs CPU
+    say("bf16_eval", bf16_pft_card_vs_cpu(torch, gs, pft, cfg,
+                                          build_models))
+    return launches
+
+
 def seq_limit(spread: float) -> float:
     return min(SEQ_CAP, max(SEQ_TOL, SEQ_SPREAD_FACTOR * spread))
 
@@ -4380,6 +4880,9 @@ def main() -> int:
     t = time.monotonic()
     flow_counts = phase_flow(torch, gs, build_models)
     say("flow", f"phase took {time.monotonic() - t:.2f} s")
+    t = time.monotonic()
+    bf16_eval_counts = phase_bf16_eval(torch, gs, cfg, build_models)
+    say("bf16_eval", f"phase took {time.monotonic() - t:.2f} s")
 
     fwd_src = "tcsfm_torch/ops/csrc/grid_sample.cu"
     bwd_src = "tcsfm_torch/ops/csrc/grid_sample_bwd.cu"
@@ -4430,13 +4933,16 @@ def main() -> int:
         flows = {p: n if name == "grid_sample_fwd" else 0
                  for p, n in flow_counts.items()}
         dist_step = 0 if i is None or i > 2 else dist_counts[i]
+        bf16_eval = {p: 0 if i is None else c[i]
+                     for p, c in bf16_eval_counts.items()}
         kernels.append(dict(name=name, route="cuda", source=source,
                             replaces=replaces,
                             launches=fwd + step + sum(refine.values())
                             + tail_fwd + pft_call + vo_pass
                             + sum(seq_calls.values()) + train_cli
                             + sum(evals.values()) + sum(flows.values())
-                            + dist_step + bf16_launches[name],
+                            + dist_step + bf16_launches[name]
+                            + sum(bf16_eval.values()),
                             launches_per_forward=fwd,
                             launches_per_train_step=step,
                             launches_per_refiner_call=refine,
@@ -4455,6 +4961,7 @@ def main() -> int:
                             launches_per_bf16_train_step=bf16_paths[
                                 "train_step"][k],
                             launches_in_bf16_phase=bf16_launches[name],
+                            launches_in_bf16_eval_phase=bf16_eval,
                             **row))
     print(json.dumps({"kernels": kernels}), flush=True)
     faulthandler.cancel_dump_traceback_later()

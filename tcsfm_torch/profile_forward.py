@@ -29,7 +29,8 @@ pieces: the solver's and the warps' glue, the backward of the packing);
 then the profiler's top kernels of the step.
 
 ``--pft`` splits one PFT call at bench.py's setting (encoder mode, 20
-epochs, window batch 4, S=2, 4 iterations, 192x640, f32), on the inputs
+epochs, window batch 4, S=2, 4 iterations, 192x640, the networks in
+``--compute_dtype``), on the inputs
 of ``chip_smoke.py``'s phase "pft" (its seeded weights with trained-like
 conditioning, its smooth uint8-grid window batch; run from the
 repository root): the call's median device time (CUDA events) and ms per
@@ -205,7 +206,7 @@ def pft_split(args) -> None:
     """One PFT call's device time, whole, by step and by piece."""
     import chip_smoke as cs
 
-    cfg = cs.med_config()
+    cfg = cs.med_config().replace(compute_dtype=args.compute_dtype)
     h, w = cfg.image_size
     b, s, epochs = cs.PFT_B, cfg.num_source_imgs, cs.PFT_EPOCHS
     n = 2 * s * b

@@ -44,7 +44,6 @@ from typing import Dict, List, NamedTuple, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
-import torch.nn.functional as F
 
 from tcsfm_torch.config import Config, PFTOptions
 from tcsfm_torch.eval.scale_recovery import scale_recovery
@@ -55,7 +54,7 @@ from tcsfm_torch.models.pose import PoseNet
 from tcsfm_torch.ops.grid_sample import grid_sample
 from tcsfm_torch.solver.coupled import CoupledOutputs, solve_pose_iteratively
 from tcsfm_torch.utils.helpers import (disp_to_depth, post_process_disparity,
-                                       resolve_device)
+                                       resolve_device, weak)
 
 MODES = ("encoder", "all_depth", "decoder", "depth_pred", "bottleneck", "pose")
 
@@ -121,16 +120,54 @@ def compute_optimization_loss(
     return loss
 
 
+def _resize_weights(m: int, n: int, like: torch.Tensor) -> torch.Tensor:
+    """``jax.image``'s ``compute_weight_mat`` for the antialiased triangle
+    kernel, [m, n], computed in float32 (float64 for a float64 ``like``, as
+    JAX computes it under x64) and cast to ``like``'s dtype, as
+    ``_scale_and_translate`` casts it: half-pixel centres, the kernel
+    widened by the downsampling factor, columns normalized to sum 1."""
+    dtype = torch.float64 if like.dtype == torch.float64 else torch.float32
+    inv_scale = 1.0 / (n / m)
+    sample = (torch.arange(n, dtype=dtype) + 0.5) * inv_scale - 0.5
+    x = (sample[None, :] - torch.arange(m, dtype=dtype)[:, None]).abs() \
+        / max(inv_scale, 1.0)
+    weights = torch.clamp(1.0 - x.abs(), min=0.0)
+    total = weights.sum(0, keepdim=True)
+    weights = torch.where(
+        total.abs() > 1000.0 * float(np.finfo(np.float32).eps),
+        weights / torch.where(total != 0, total, torch.ones_like(total)),
+        torch.zeros_like(weights))
+    inside = (sample >= -0.5) & (sample <= m - 0.5)
+    weights = torch.where(inside[None, :], weights, torch.zeros_like(weights))
+    return weights.to(device=like.device, dtype=like.dtype)
+
+
 def resize_bilinear(x: torch.Tensor, h: int, w: int) -> torch.Tensor:
-    """``jax.image.resize(x, (n, h, w, c), "bilinear")`` of NHWC ``x``:
-    half-pixel centres with a triangle kernel widened by the downsampling
-    factor (PyTorch's ``antialias=True``; upsampling is plain bilinear).
-    A bfloat16 ``x`` (a bfloat16 net's disparity) is resized in float32
-    and rounded back: the CPU has no bfloat16 antialiased resize."""
-    xf = x.float() if x.dtype == torch.bfloat16 else x
-    y = F.interpolate(xf.permute(0, 3, 1, 2), size=(h, w), mode="bilinear",
-                      align_corners=False, antialias=True)
-    return y.permute(0, 2, 3, 1).to(x.dtype)
+    """``jax.image.resize(x, (n, h, w, c), "bilinear")`` of NHWC ``x``, as
+    JAX computes it: each resized axis contracts with a weight matrix
+    (``_resize_weights``) cast to ``x``'s dtype, one axis after the other
+    in the order ``jnp.einsum``'s path takes (the one of fewer
+    multiply-adds, H first on a tie), each contraction's result in ``x``'s
+    dtype. For a bfloat16 ``x`` (a bfloat16 net's disparity) that rounds to
+    bfloat16 between the two axes and after them, which XLA's bfloat16 dots
+    do on the CPU; the sums themselves run in float32."""
+    hin, win = x.shape[1:3]
+    acc = torch.float32 if x.dtype == torch.bfloat16 else x.dtype
+
+    def along(y, eq, m, n):
+        if m == n:
+            return y
+        weights = _resize_weights(m, n, x).to(acc)
+        return torch.einsum(eq, y.to(acc), weights).to(x.dtype)
+
+    def along_h(y):
+        return along(y, "nhwc,hk->nkwc", hin, h)
+
+    def along_w(y):
+        return along(y, "nhwc,wk->nhkc", win, w)
+
+    h_first = hin * win * h + h * win * w <= hin * win * w + hin * w * h
+    return along_w(along_h(x)) if h_first else along_h(along_w(x))
 
 
 # --------------------------------------------------------------------------
@@ -175,6 +212,54 @@ def partition_params(mode: str, depth_net: DepthNet, pose_net: PoseNet,
     for t in trainable.values():
         t.requires_grad_(True)
     return trainable, skips, disparities
+
+
+class OptaxBF16(torch.optim.Optimizer):
+    """optax's ``adam(lr)`` or ``sgd(lr)`` on bfloat16 leaves (the
+    'depth_pred' disparities and the 'bottleneck' skips of a bfloat16 net),
+    rounded as JAX rounds them. optax keeps such a leaf's moments in
+    bfloat16 and runs each step's operations in it, one rounding an
+    operation, its Python constants rounded to bfloat16 first (weak typing,
+    ``utils.helpers.weak``): b2 = 0.999 becomes 1.0, so the second moment
+    never decays, and the update is bf16(-lr) times the rounded ratio;
+    ``apply_updates`` rounds p + u once more, so an lr-sized step on a
+    value above ~0.06 rounds away. ``torch.optim.Adam`` rounds at other
+    points (its update differs from optax's on ~0.1% of bfloat16 elements
+    from the second step on), and ``SGD`` adds lr x g unrounded. This is
+    JAX's behaviour, kept, not repaired."""
+
+    B1, B2, EPS = 0.9, 0.999, 1e-8
+
+    def __init__(self, params, lr: float, kind: str = "adam"):
+        super().__init__(params, dict(lr=lr))
+        self.kind = kind
+
+    @torch.no_grad()
+    def step(self, closure=None):
+        for group in self.param_groups:
+            for p in group["params"]:
+                p.copy_(p + weak(-group["lr"], p) * self._direction(p))
+
+    def _direction(self, p: torch.Tensor) -> torch.Tensor:
+        """optax's update before its scale by -lr."""
+        g = p.grad
+        if self.kind == "sgd":
+            return g
+        st = self.state[p]
+        if not st:
+            st.update(count=0, mu=torch.zeros_like(p), nu=torch.zeros_like(p))
+        b1, b2 = self.B1, self.B2
+        st["mu"] = weak(1 - b1, p) * g + weak(b1, p) * st["mu"]
+        st["nu"] = weak(1 - b2, p) * (g * g) + weak(b2, p) * st["nu"]
+        st["count"] += 1
+
+        def bias_correction(decay):
+            # 1 - decay**count in float32, then cast, as optax computes it
+            return (1 - torch.tensor(decay, dtype=torch.float32)
+                    ** st["count"]).to(p.device, p.dtype)
+
+        return (st["mu"] / bias_correction(b1)) / (
+            torch.sqrt(st["nu"] / bias_correction(b2)) + weak(self.EPS, p))
 
 
 class PFTResult(NamedTuple):
@@ -308,13 +393,15 @@ class PFTOptimizer:
 
     def _make_optimizer(self, params) -> torch.optim.Optimizer:
         """optax's ``adam(lr)`` (betas (0.9, 0.999), eps 1e-8) or
-        ``sgd(lr)`` (no momentum)."""
+        ``sgd(lr)`` (no momentum); on bfloat16 leaves ``OptaxBF16``."""
+        if self.opts.optimizer not in ("adam", "sgd"):
+            raise ValueError(self.opts.optimizer)
+        if any(p.dtype == torch.bfloat16 for p in params):
+            return OptaxBF16(params, self.opts.lr, self.opts.optimizer)
         if self.opts.optimizer == "adam":
             return torch.optim.Adam(params, lr=self.opts.lr,
                                     betas=(0.9, 0.999), eps=1e-8)
-        if self.opts.optimizer == "sgd":
-            return torch.optim.SGD(params, lr=self.opts.lr)
-        raise ValueError(self.opts.optimizer)
+        return torch.optim.SGD(params, lr=self.opts.lr)
 
     def optimize_window(self, batch: Dict[str, object], device=None,
                         sampler: Sampler = grid_sample) -> PFTResult:

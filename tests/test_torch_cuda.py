@@ -651,6 +651,67 @@ def test_pft_on_card(cuda, mode):
     print(mode, grads, fields, first)
 
 
+BF16_WINDOW_FRACTION = 3.0
+
+
+def test_bf16_pft_window_card_vs_cpu(cuda):
+    """The 64x96 bf16 PFT window (``chip_smoke.PFT_SMALL``: B=2, S=2, 3
+    epochs; 4 iterations, encoder mode, trained-like) on the card against
+    the CPU, by the CPU tests' rule (``tests/test_torch_bf16_pft*.py``):
+    the first loss and the first step's gradient within
+    ``chip_smoke.BF16_FRACTION`` x the CPU's bf16-vs-f32 gap
+    (``chip_smoke.bf16_pft_card_vs_cpu``); the window's losses, poses_opt
+    and disp_opt within ``BF16_WINDOW_FRACTION`` x the larger of the CPU's
+    bf16-vs-f32 gap and its bf16 run's one-ulp spread, relative L2, and the
+    forward and inverse poses swapped (a planted fault) past that limit;
+    the launches those of an f32 call."""
+    import copy
+
+    import chip_smoke
+    from tcsfm_torch.config import PFTOptions
+    from tcsfm_torch.solver import pft
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    print(chip_smoke.bf16_pft_card_vs_cpu(torch, gs, pft, Config(
+        compute_dtype="float32", iterations=chip_smoke.ITERS), build_models))
+    b, h, w, epochs = chip_smoke.PFT_SMALL
+    cpu_batch = chip_smoke.pft_batch(torch, b, h, w, seed=8, device="cpu")
+    opts = PFTOptions(epochs=epochs, num_source_imgs=2)
+    calls = {}
+    for dtype in ("bfloat16", "float32"):
+        cfg = Config(compute_dtype=dtype, iterations=chip_smoke.ITERS)
+        nets = build_models(cfg, device="cpu",
+                            generator=torch.Generator().manual_seed(1))
+        chip_smoke.condition_like_trained(nets[0], torch)
+        opt = pft.PFTOptimizer(cfg, opts, *nets)
+        calls[dtype] = opt.optimize_window(cpu_batch, device="cpu")
+        if dtype == "bfloat16":
+            calls["ulp"] = opt.optimize_window(
+                chip_smoke.one_ulp_up(torch, cpu_batch), device="cpu")
+            card = pft.PFTOptimizer(cfg, opts, *(copy.deepcopy(n).cuda()
+                                                 for n in nets))
+            chip_smoke.zero_counts(gs)
+            calls["card"] = card.optimize_window(
+                {k: v.cuda() for k, v in cpu_batch.items()})
+            torch.cuda.synchronize()
+            assert chip_smoke.read_counts(gs) == \
+                chip_smoke.pft_expected_launches(epochs, chip_smoke.ITERS)
+    rel = chip_smoke.rel_l2_of
+    for k in chip_smoke.PFT_FIELDS:
+        ours, ref = (getattr(calls[n], k).cpu() for n in ("card", "bfloat16"))
+        gap = rel(ref, getattr(calls["float32"], k))
+        spread = rel(getattr(calls["ulp"], k), ref)
+        limit = BF16_WINDOW_FRACTION * max(gap, spread)
+        print(f"{k}: card vs CPU {rel(ours, ref):.3e}, gap {gap:.3e}, "
+              f"spread {spread:.3e}, limit {limit:.3e}")
+        assert rel(ours, ref) <= limit, k
+    swapped = calls["card"].poses_inv_opt.cpu()
+    assert rel(swapped, calls["bfloat16"].poses_opt) > BF16_WINDOW_FRACTION \
+        * max(rel(calls["bfloat16"].poses_opt, calls["float32"].poses_opt),
+              rel(calls["ulp"].poses_opt, calls["bfloat16"].poses_opt))
+
+
 # card vs CPU where f32 does not resolve a path: within this many times
 # the CPU run's own one-ulp spread (chip_smoke's SEQ_SPREAD_FACTOR)
 SPREAD_FACTOR = 4
