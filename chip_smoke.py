@@ -133,7 +133,16 @@ Phases, each printing its elapsed seconds:
      ``utils.profiling.trace`` (one value launch a panel, equal to the
      plain sampler's, the trace naming the kernel); the legacy
      ``inverse_warp`` kernel vs plain (one launch); the SE(3) maps card vs
-     CPU.
+     CPU;
+ 14. phase "bf16_eval": the bf16 PFT and evaluation path. bf16 PFT at
+     phase 10's setting in 'encoder', 'depth_pred' and 'bottleneck' modes
+     (launches a step, kernel vs plain sampler within the plain call's
+     spread, a planted sampler fault past those limits), timed in turns
+     with f32; then phase 9a's ``cli.train`` model directory (bf16) through
+     ``evaluate_vo``, ``run_sequential_pft --refiner ba``,
+     ``evaluate_depth_eigen`` and ``evaluate_scannet`` on phases 11 and
+     12's inputs, each kernel run against its plain-sampler run within
+     that run's one-ulp spread; the 64x96 bf16 PFT first step card vs CPU.
 
 Phase 2 also holds the sampler's two backward kernels (d_coords only,
 and d_coords + d_img; d_coords bit for bit), its value+Jacobian kernel and
@@ -143,9 +152,9 @@ Prints the kernels' JSON line, then, as the last line,
 non-zero; a hang past the watchdog dumps a traceback and exits non-zero.
 Inputs and weights come from seeds, apart from the drive, the
 repository's ``.flagship_data/drive1504_192x640/synthetic/
-sequence_data.npz`` (phases 11-13). Writes under ``build/sequence/``,
-``build/train_cli/``, ``build/bf16_cli/``, ``build/eval/`` and
-``build/flow/``.
+sequence_data.npz`` (phases 11-14). Writes under ``build/sequence/``,
+``build/train_cli/``, ``build/bf16_cli/``, ``build/eval/``,
+``build/flow/`` and ``build/bf16_eval/``.
 """
 
 from __future__ import annotations
@@ -396,23 +405,27 @@ PFT_CPU_TOL = 0.1
 # phase "bf16_eval": the bfloat16 PFT and evaluation path. PFT at phase
 # "pft"'s setting on phase "bf16"'s nets (seed 3, trained-like), encoder
 # mode: the launches a step, the kernel- vs plain-sampler call held by
-# PFT's own spread rule read in bf16 (bf16_pft_parity), and
-# BF16_PFT_TIMED calls timed in turns with the f32 call of the
-# same weights; one window batch each of 'depth_pred' and 'bottleneck',
-# kernel vs plain within BF16_PFT_MODE_FACTOR x the plain call's spread
-# with its images one ulp up (at least PFT_TOL). Then the bf16 model
-# directory phase "bf16"'s cli.train wrote through evaluate_vo (the
-# drive's 64-frame cut, kernel, plain and plain with its images one ulp
-# up, and one timed pass over the whole drive), run_sequential_pft
-# --refiner ba (SEQ_FRAMES synthetic frames at 192x640), evaluate_depth_eigen
-# (the first BF16_EIGEN_FRAMES frames of the split phase "eval" writes, GT
-# as there) and evaluate_scannet (phase "eval"'s scene): each against its
-# plain-sampler run within seq_limit of that run's own one-ulp spread (run
-# alone, the phase writes what the earlier phases would have). Last, the 64x96
-# bf16 PFT first step (PFT_SMALL) card vs CPU within BF16_FRACTION x the
-# CPU's bf16-vs-f32 gap (tests/test_torch_bf16_pft*.py's rule)
+# PFT's own spread rule read in bf16 (bf16_pft_parity: the call's fields
+# within PFT_SPREAD_FACTOR x the plain call's own spread, uncapped, since
+# in bf16 one ulp moves the call past PFT_CAP), and BF16_PFT_TIMED calls
+# timed in turns with the f32 call of the same weights; one window batch
+# each of 'depth_pred' and 'bottleneck' by the same call rule
+# (bf16_pft_call). Each of the three calls is made once more through a
+# planted sampler fault (the kernel sampler at coordinates one pixel
+# right, shifted_sampler), which must fail the call: one field past its
+# limit at least. Then the bf16 model directory phase "bf16"'s cli.train wrote,
+# on what phases "sequence" and "eval" wrote (so the phase runs after
+# them): evaluate_vo (the drive's 64-frame cut, kernel, plain and plain
+# with its images one ulp up, and one timed pass over the whole drive),
+# run_sequential_pft --refiner ba (SEQ_FRAMES synthetic frames at 192x640,
+# written with a copy one ulp up), evaluate_depth_eigen (the drive's
+# first BF16_EIGEN_FRAMES frames written as phase "eval" writes its split,
+# GT as there) and evaluate_scannet (phase "eval"'s scene): each against
+# its plain-sampler run within seq_limit of that run's own one-ulp spread.
+# Last, the 64x96 bf16 PFT first step (PFT_SMALL) card vs CPU within
+# BF16_FRACTION x the CPU's bf16-vs-f32 gap (tests/test_torch_bf16_pft*.py's
+# rule)
 BF16_PFT_TIMED = 2
-BF16_PFT_MODE_FACTOR = 4
 BF16_EIGEN_FRAMES = 64
 # phase "sequence": the committed 1504-frame drive at 192x640 through
 # evaluate_vo (batch 8, 4 iterations: 1503 pair windows), a 64-frame cut
@@ -3010,20 +3023,23 @@ def pft_first_step(torch, opt, batch, sampler, scale=1.0):
     return loss.detach(), {k: g / scale for k, g in zip(win.trainable, grads)}
 
 
-def pft_call_readings(torch, gs, pft, opt, batch):
+def pft_call_readings(torch, gs, pft, opt, batch, fault=False):
     """The kernel- and plain-sampler PFT calls from ``opt``'s state (cuDNN
     deterministic), and the plain call again in each of
     ``pft_spread_runs``' ways. Returns, by field of ``PFT_FIELDS``, the
     kernel call's distance from the plain one and the plain call's own
     spread (the largest of the reruns', and each rerun's), as relative L2
     and as max |diff| / max |plain|; and the first loss of the kernel call
-    and of the plain one."""
+    and of the plain one. With ``fault`` also the distance of a call
+    through a planted sampler fault (``shifted_sampler``) as "fault"."""
     plain = gs.grid_sample_plain
     with cudnn_deterministic(torch):
         call = pft_results(opt.optimize_window(batch))
         call_ref = pft_results(opt.optimize_window(batch, sampler=plain))
         reruns = {name: pft_results(run()) for name, run
                   in pft_spread_runs(torch, gs, pft, opt, batch)}
+        faulty = (pft_results(opt.optimize_window(
+            batch, sampler=shifted_sampler(torch, gs))) if fault else None)
     readings = {}
     for k in PFT_FIELDS:
         check(bool(torch.isfinite(call[k]).all()), f"PFT call: {k} not "
@@ -3035,7 +3051,38 @@ def pft_call_readings(torch, gs, pft, opt, batch):
             "rel_max": rel_max(call[k], call_ref[k]),
             "spread_max": max(rel_max(r[k], call_ref[k])
                               for r in reruns.values())}
+        if faulty is not None:
+            readings[k]["fault"] = rel_l2_of(faulty[k], call_ref[k])
     return readings, (call["losses"][0].item(), call_ref["losses"][0].item())
+
+
+def fields_text(fields) -> str:
+    """``bf16_pft_call``'s fields as text."""
+    return ", ".join(f"{k} {e:.3e} (spread {sp:.3e}, limit {lim:.3e})"
+                     for k, (e, sp, lim) in fields.items())
+
+
+def shifted_sampler(torch, gs):
+    """The kernel sampler with every coordinate one pixel right of where
+    it was asked: a planted fault of the sampler on PFT's path."""
+
+    def sample(img, coords, tail=None):
+        shift = torch.tensor([1.0, 0.0], device=coords.device,
+                             dtype=coords.dtype)
+        return gs.grid_sample(img, coords + shift, tail)
+
+    return sample
+
+
+def pft_fault_check(readings, limits, what):
+    """The planted sampler fault (``pft_call_readings(fault=True)``) fails
+    the call: past its limit in at least one field. Returns the readings'
+    text."""
+    text = ", ".join(f"{k} {r['fault']:.3e}" for k, r in readings.items())
+    check(any(r["fault"] > limits[k] for k, r in readings.items()),
+          f"{what}: the planted sampler fault ({text}) passes every limit "
+          f"{limits}")
+    return text
 
 
 def pft_spread_runs(torch, gs, pft, opt, batch):
@@ -3265,10 +3312,10 @@ def bf16_pft_parity(torch, gs, pft, opt, batch, what):
     widened tensors do not apply), the whole gradient within
     STEP_SPREAD_FACTOR x its spread; then the whole call as phase "pft"
     holds it (pft_call_readings), each field within max(PFT_TOL,
-    PFT_SPREAD_FACTOR x the plain call's own spread), uncapped. Returns
+    PFT_SPREAD_FACTOR x the plain call's own spread), uncapped, with a
+    planted sampler fault past those limits (``bf16_pft_call``). Returns
     the worst gradient relative L2, the whole gradient's and its spread,
-    each field's (error, spread, limit), and the first loss's
-    difference."""
+    and ``bf16_pft_call``'s readings."""
     plain = gs.grid_sample_plain
 
     def flat(grads):
@@ -3289,8 +3336,19 @@ def bf16_pft_parity(torch, gs, pft, opt, batch, what):
     check(whole <= STEP_SPREAD_FACTOR * whole_spread, f"{what}: the first "
           f"step's whole gradient {whole} > {STEP_SPREAD_FACTOR} x its "
           f"spread {whole_spread}")
+    fields, first, fault = bf16_pft_call(torch, gs, pft, opt, batch, what)
+    return (worst, whole, whole_spread), fields, first, fault
+
+
+def bf16_pft_call(torch, gs, pft, opt, batch, what):
+    """The bf16 PFT call with the kernels against the plain-sampler call
+    (``pft_call_readings``): the first loss within STEP_LOSS_TOL, each
+    field within max(PFT_TOL, PFT_SPREAD_FACTOR x the plain call's own
+    spread), uncapped, and the planted sampler fault failing them
+    (``pft_fault_check``). Returns each field's (error, spread, limit), the
+    first loss's difference and the fault's text."""
     readings, (loss0, ref_loss0) = pft_call_readings(torch, gs, pft, opt,
-                                                     batch)
+                                                     batch, fault=True)
     first = abs(loss0 - ref_loss0)
     check(first <= STEP_LOSS_TOL * abs(ref_loss0),
           f"{what}: first loss differs by {first}")
@@ -3301,24 +3359,9 @@ def bf16_pft_parity(torch, gs, pft, opt, batch, what):
         check(r["rel_l2"] <= limit, f"{what}: {k} kernel vs plain relative "
               f"L2 {r['rel_l2']} > {limit} (plain call's own spread "
               f"{r['spread']})")
-    return (worst, whole, whole_spread), fields, first
-
-
-def pft_modes_parity(torch, gs, pft, opt, batch):
-    """One bf16 PFT call of ``opt`` with the kernels and with the plain
-    sampler (cuDNN deterministic), and the plain call with its images one
-    ulp up: {field: (kernel vs plain, spread)} as relative L2."""
-    plain = gs.grid_sample_plain
-    with cudnn_deterministic(torch):
-        call = pft_results(opt.optimize_window(batch))
-        ref = pft_results(opt.optimize_window(batch, sampler=plain))
-        ulp = pft_results(opt.optimize_window(one_ulp_up(torch, batch),
-                                              sampler=plain))
-    for k in PFT_FIELDS:
-        check(bool(torch.isfinite(call[k]).all()), f"bf16 PFT {opt.mode}: "
-              f"{k} not finite")
-    return {k: (rel_l2_of(call[k], ref[k]), rel_l2_of(ulp[k], ref[k]))
-            for k in PFT_FIELDS}
+    fault = pft_fault_check(readings, {k: v[2] for k, v in fields.items()},
+                            what)
+    return fields, first, fault
 
 
 def bf16_pft_card_vs_cpu(torch, gs, pft, cfg, build_models):
@@ -3386,7 +3429,6 @@ def phase_bf16_eval(torch, gs, cfg, build_models):
     from tcsfm_torch.data.synthetic import make_synthetic_sequence
     from tcsfm_torch.eval.vo import VOEvaluator
     from tcsfm_torch.solver import pft
-    from tcsfm_torch.train.checkpoint import save_checkpoint
 
     bf16 = torch.bfloat16
     torch.backends.cudnn.allow_tf32 = False
@@ -3428,7 +3470,7 @@ def phase_bf16_eval(torch, gs, cfg, build_models):
         t = getattr(res, k)
         check(bool(torch.isfinite(t).all()), f"bf16 PFT: {k} not finite")
     steps, per_step = PFT_EPOCHS - 1, (ITERS, ITERS - 1, 1)
-    (worst, whole, whole_spread), fields, first = bf16_pft_parity(
+    (worst, whole, whole_spread), fields, first, fault = bf16_pft_parity(
         torch, gs, pft, opt, batch, "bf16 PFT kernel vs plain sampler")
     say("bf16_eval", f"PFT bf16 encoder {H}x{W} window batch {PFT_B} S={S} "
         f"iters={ITERS} epochs={PFT_EPOCHS}: launches (value, d_coords, "
@@ -3438,9 +3480,8 @@ def phase_bf16_eval(torch, gs, cfg, build_models):
         f"vs plain sampler (cuDNN deterministic): first loss diff "
         f"{first:.3e}, first step's worst gradient relative L2 {worst:.3e}, "
         f"the whole gradient {whole:.3e} (limit {STEP_SPREAD_FACTOR} x its "
-        f"spread {whole_spread:.3e}); the call " + ", ".join(
-            f"{k} {e:.3e} (spread {sp:.3e}, limit {lim:.3e})"
-            for k, (e, sp, lim) in fields.items()))
+        f"spread {whole_spread:.3e}); the call " + fields_text(fields)
+        + f"; the planted fault (coordinates one pixel right) {fault}")
     times = {d: [] for d in cfgs}
     peak = dict.fromkeys(cfgs, 0)
     for i in range(1 + BF16_PFT_TIMED):
@@ -3471,44 +3512,26 @@ def phase_bf16_eval(torch, gs, cfg, build_models):
         launches[f"pft_{mode}"] = counts()
         check(launches[f"pft_{mode}"] == expected + (0,),
               f"bf16 PFT {mode}: launches {launches[f'pft_{mode}']}")
-        readings = pft_modes_parity(torch, gs, pft, mode_opt, batch)
-        text = ", ".join(
-            f"{k} {e:.3e} (spread {sp:.3e}, limit "
-            f"{max(PFT_TOL, BF16_PFT_MODE_FACTOR * sp):.3e})"
-            for k, (e, sp) in readings.items())
+        fields, first, fault = bf16_pft_call(torch, gs, pft, mode_opt, batch,
+                                             f"bf16 PFT {mode}")
         say("bf16_eval", f"PFT bf16 {mode}, one window batch: launches "
-            f"{launches[f'pft_{mode}']}; kernel vs plain sampler, relative "
-            f"L2: {text}")
-        check(all(e <= max(PFT_TOL, BF16_PFT_MODE_FACTOR * sp)
-                  for e, sp in readings.values()),
-              f"bf16 PFT {mode}: kernel vs plain {text}")
+            f"{launches[f'pft_{mode}']}; kernel vs plain sampler: first loss "
+            f"diff {first:.3e}, " + fields_text(fields) + f"; the planted "
+            f"fault {fault}")
     del mode_opt, opt
 
-    # 2. the bf16 model directory phase "bf16"'s cli.train wrote (run
-    # alone: phase "bf16"'s seeded nets saved with a bf16 config), and the
-    # inputs of phases "sequence" and "eval" (run alone: written here from
-    # the drive as they write them)
+    # 2. the bf16 model directory phase "bf16"'s cli.train wrote, on the
+    # inputs phases "sequence" and "eval" wrote (the drive's 64-frame cut,
+    # the ScanNet scene, each with its copy one ulp up)
     drive_npz = root / SEQ_DRIVE / "synthetic" / "sequence_data.npz"
     seq = SequenceData.from_npz(str(drive_npz))
     model_dir = str(root / "build" / "bf16_cli" / "run")
-    if not os.path.exists(os.path.join(model_dir, "config.json")):
-        model_dir = str(work / "model")
-        nets = build_models(cfgs["bfloat16"], device="cuda",
-                            generator=torch.Generator().manual_seed(3))
-        condition_like_trained(nets[0], torch)
-        save_checkpoint(model_dir, nets, epoch=1, best_val_loss=1.0,
-                        cfg=cfgs["bfloat16"], is_best=True)
     seq_data = root / "build" / "sequence" / "data"
-    if not (seq_data / "cut_ulp").exists():
-        seq_data = work / "data"
-        cut = SequenceData(name="cut", intrinsics=seq.intrinsics[:SEQ_CUT],
-                           gt_poses=seq.gt_poses[:SEQ_CUT],
-                           vo_poses=seq.vo_poses[:SEQ_CUT],
-                           timestamps=seq.timestamps[:SEQ_CUT])
-        write_sequence(seq_data / "cut", cut, seq.images[:SEQ_CUT])
-        write_sequence(seq_data / "cut_ulp", cut, np.nextafter(
-            seq.images[:SEQ_CUT].astype(np.float32) / np.float32(255.0),
-            np.float32(2.0)))
+    scan = root / "build" / "eval" / "scannet"
+    for path in (Path(model_dir) / "config.json", seq_data / "cut_ulp",
+                 scan / "scene0_ulp.npz"):
+        check(path.exists(), f"{path} is missing: phase \"bf16_eval\" runs "
+              f"after phases \"bf16\", \"sequence\" and \"eval\"")
     dtype = load_config(model_dir, Config()).compute_dtype
     depth_net, pose_net = load_nets(model_dir, "cuda")
     check(dtype == "bfloat16" and depth_net.compute_dtype == bf16
@@ -3539,14 +3562,9 @@ def phase_bf16_eval(torch, gs, cfg, build_models):
             out[which] = read(which)
         err = gap(out["kernel"], out["plain"])
         spread = gap(out["plain_ulp"], out["plain"])
-        check(all(e <= seq_limit(s) for e, s in zip(err, spread)),
+        check(within_spread(err, spread),
               f"bf16 {name} kernel vs plain: {err}, spread {spread}")
         return err, spread
-
-    def spread_text(what, err, spread):
-        return "; ".join(f"{w} {e:.3e} (spread {s:.3e}, limit "
-                         f"{seq_limit(s):.3e})"
-                         for w, e, s in zip(what, err, spread))
 
     # evaluate_vo: the drive's 64-frame cut, then one timed pass over the
     # whole drive
@@ -3586,7 +3604,7 @@ def phase_bf16_eval(torch, gs, cfg, build_models):
         "bf16 VO over the drive: errors not finite")
     say("bf16_eval", f"{card}: evaluate_vo, bf16 model directory ({stated}):"
         f" the 64-frame cut, kernel vs plain sampler: "
-        f"{spread_text(('pose vectors', 'DNet scales'), err, spread)}; "
+        f"{gaps_text(err, spread)}; "
         f"launches {launches['evaluate_vo']}; the whole drive, {windows} "
         f"pair windows, batch {SEQ_BATCH}, {ITERS} iterations: one pass "
         f"{wall:.3f} s -> {windows / wall:.2f} windows/s, launches "
@@ -3595,23 +3613,25 @@ def phase_bf16_eval(torch, gs, cfg, build_models):
         + ", ".join(f"{k} {errs[k]}" for k in (
             "errors_unscaled", "errors_dnet", "errors_gt_scaled")))
 
-    # run_sequential_pft --refiner ba on SEQ_FRAMES synthetic frames
+    # run_sequential_pft --refiner ba on SEQ_FRAMES synthetic frames, all
+    # three runs from written sequences
     syn = make_synthetic_sequence(SEQ_FRAMES, (H, W), seed=13)
+    write_sequence(work / "data" / "ba", syn, syn.images)
     write_sequence(work / "data" / "ba_ulp", syn,
                    np.nextafter(syn.images, np.float32(2.0)))
 
+    def ba_key(which):
+        return "ba_ulp" if which == "plain_ulp" else "ba"
+
     def ba_run(which, sampler, ulp):
-        src = (["--data_dir", str(work / "data"), "--seqs", "ba_ulp"] if ulp
-               else ["--synthetic", "--synthetic_size", str(H), str(W)])
         args = seq_pft.parse_args(
-            ["--model_dir", model_dir, "--refiner", "ba",
-             "--synthetic_frames", str(SEQ_FRAMES), "--window_batch",
-             str(SEQ_WB), "--out_dir", str(work / f"ba_{which}")] + src)
+            ["--model_dir", model_dir, "--refiner", "ba", "--data_dir",
+             str(work / "data"), "--seqs", ba_key(which), "--window_batch",
+             str(SEQ_WB), "--out_dir", str(work / f"ba_{which}")])
         return seq_pft.run(args, depth_net, pose_net, "cuda", sampler=sampler)
 
     def ba_read(which):
-        key = "ba_ulp" if which == "plain_ulp" else "synthetic"
-        return np.load(work / f"ba_{which}" / f"{key}_pft.npz")
+        return np.load(work / f"ba_{which}" / f"{ba_key(which)}_pft.npz")
 
     def ba_gap(a, b):
         return tuple(float(np.abs(a[k].astype(np.float64) - b[k]).max())
@@ -3626,7 +3646,7 @@ def phase_bf16_eval(torch, gs, cfg, build_models):
     say("bf16_eval", f"run_sequential_pft --refiner ba, bf16 model directory "
         f"({stated}), {SEQ_FRAMES} frames at {H}x{W}: kernel vs plain "
         f"sampler (relative to the largest): "
-        f"{spread_text(('pose_init', 'pose_opt'), err, spread)}; launches "
+        f"{gaps_text(err, spread, ('pose_init', 'pose_opt'))}; launches "
         f"{launches['run_sequential_pft_ba']} (expected {want}); window_ba "
         f"computes in float32 on the nets' bf16 depths")
 
@@ -3686,20 +3706,9 @@ def phase_bf16_eval(torch, gs, cfg, build_models):
         f"({stated}), the first {n} frames of phase \"eval\"'s split: "
         f"flip-merged disparities (float32 file) against the plain "
         f"sampler's run (no sampler on this path: equal) "
-        f"{spread_text(('disparity',), err, spread)}; metrics {metrics}")
+        f"{gaps_text(err, spread, ('disparity',))}; metrics {metrics}")
 
     # evaluate_scannet on phase "eval"'s scene
-    scan = root / "build" / "eval" / "scannet"
-    if not (scan / "scene0_ulp.npz").exists():
-        scan, m = work / "scannet", EVAL_SCENE_FRAMES
-        os.makedirs(scan)
-        scene = dict(name="scene0", intrinsics=seq.intrinsics[:m],
-                     gt_poses=seq.gt_poses[:m], vo_poses=seq.gt_poses[:m],
-                     timestamps=seq.timestamps[:m], depths=depths[:m])
-        np.savez(scan / "scene0.npz", images=seq.images[:m], **scene)
-        np.savez(scan / "scene0_ulp.npz", images=np.nextafter(
-            seq.images[:m].astype(np.float32) / np.float32(255.0),
-            np.float32(2.0)), **dict(scene, name="scene0_ulp"))
     del seq, depths
     scannet_preds = {}
 
@@ -3724,7 +3733,7 @@ def phase_bf16_eval(torch, gs, cfg, build_models):
     res = scannet_preds["kernel"][1]
     say("bf16_eval", f"evaluate_scannet, bf16 model directory ({stated}), "
         f"{windows} windows: kernel vs plain sampler "
-        f"{spread_text(('disparities', 'pose vectors'), err, spread)}; "
+        f"{gaps_text(err, spread, ('disparities', 'pose vectors'))}; "
         f"launches {launches['evaluate_scannet']} (expected {want}); depth "
         f"{res['depth']}, pose {res['pose']}")
 
@@ -3798,14 +3807,14 @@ def preds_gap(a, b):
 
 
 def within_spread(err, spread) -> bool:
-    """Each of ``preds_gap``'s two gaps within the limit of its spread."""
+    """Each gap (``preds_gap``'s two) within the limit of its spread."""
     return all(e <= seq_limit(s) for e, s in zip(err, spread))
 
 
-def gaps_text(err, spread) -> str:
-    return "; ".join(f"{what} {e:.3e} (spread {s:.3e}, limit "
-                     f"{seq_limit(s):.3e})" for what, e, s in
-                     zip(("pose vectors", "DNet scales"), err, spread))
+def gaps_text(err, spread, what=("pose vectors", "DNet scales")) -> str:
+    return "; ".join(f"{w} {e:.3e} (spread {s:.3e}, limit "
+                     f"{seq_limit(s):.3e})" for w, e, s in
+                     zip(what, err, spread))
 
 
 def seq_refiner_launches(refiner, iters, windows, frames):

@@ -1,6 +1,6 @@
 """Shared pieces of the bfloat16 evaluation tests
-(``test_torch_bf16_eval.py``, ``test_torch_bf16_eval_scannet.py``,
-``test_torch_bf16_seqpft.py``): one model
+(``test_torch_bf16_eval*.py``, ``test_torch_bf16_model_dirs.py``,
+``test_torch_bf16_seqpft*.py``): one model
 directory each package's CLIs read, and the port's runs with the images
 one f32 ulp up and one down.
 
@@ -25,6 +25,7 @@ float32 run of each would cost another XLA compile.
 from __future__ import annotations
 
 import contextlib
+import functools
 import os
 
 import numpy as np
@@ -76,6 +77,54 @@ def nudged(direction):
     with pytest.MonkeyPatch.context() as mp:
         mp.setattr(helpers, "to_device", moved)
         mp.setattr(vo, "to_device", moved)
+        yield
+
+
+@contextlib.contextmanager
+def weights_as_arguments():
+    """``jax.jit`` with what a jitted function closes over passed to the
+    program as arguments: the JAX package's evaluation CLIs jit their
+    forwards with the weights closed over, and XLA constant-folds a program
+    with a model's weights in it (``evaluate_scannet``'s JAX run took 95 s
+    cold on an x86 CPU, 25 s with the weights as arguments). The
+    function is traced (``jax.make_jaxpr``) once a static-argument value
+    and argument shape, and its jaxpr run jitted with its constants as
+    arguments: the same operations on the same values. The folded program
+    rounds what its folder evaluates otherwise: its bfloat16 Eigen metrics
+    read 4e-5 (abs_rel, relative) from these, a tenth of their gap."""
+    import jax
+
+    jit = jax.jit
+
+    def lifted(fun=None, *, static_argnames=(), **kw):
+        if fun is None:
+            return functools.partial(lifted, static_argnames=static_argnames,
+                                     **kw)
+        static = ((static_argnames,) if isinstance(static_argnames, str)
+                  else tuple(static_argnames))
+        cache = {}
+
+        def call(*args, **kwargs):
+            fixed = {k: v for k, v in kwargs.items() if k in static}
+            free = {k: v for k, v in kwargs.items() if k not in static}
+            flat, tree = jax.tree_util.tree_flatten((args, free))
+            key = (tuple(sorted(fixed.items())), tree,
+                   tuple((np.shape(a), str(np.result_type(a)))
+                         for a in flat))
+            if key not in cache:
+                closed, shape = jax.make_jaxpr(
+                    lambda a, f: fun(*a, **f, **fixed),
+                    return_shape=True)(args, free)
+                cache[key] = (closed.consts, jit(functools.partial(
+                    jax.core.eval_jaxpr, closed.jaxpr)),
+                    jax.tree_util.tree_structure(shape))
+            consts, run, out = cache[key]
+            return jax.tree_util.tree_unflatten(out, run(consts, *flat))
+
+        return call
+
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(jax, "jit", lifted)
         yield
 
 

@@ -1,6 +1,7 @@
 """Shared runs for the bfloat16 PFT tests (``test_torch_bf16_pft*.py``):
 one window through the JAX package's ``PFTOptimizer`` and through the
-port's, with every step's loss inputs, gradients and updates recorded.
+port's, with the loss's inputs at every forward and the first step's
+gradients and update recorded.
 
 The setting: 64x96 (the pose net trains in 'pose' mode, and torch's CPU
 bfloat16 conv backward returns NaN weight gradients at 1x1 inputs,
@@ -11,27 +12,28 @@ does not resolve the coupled path at the raw init) converted by
 
 JAX runs ``jax.jit(optimize_window)``, as ``optimize_window_jit`` does,
 with the module's ``optax`` and ``compute_optimization_loss`` replaced by
-recording wrappers (``jax.debug.callback``): the gradient and the
-parameters at each ``tx.update``, the parameters ``apply_updates``
-returns, and the loss's inputs at every forward. The wrapped program's
-results equal the bare one's bit for bit in 'depth_pred' mode; in
-'bottleneck' mode XLA fuses around the recorded bfloat16 skips otherwise
-and the window moves by up to 4.1e-4 (losses) and 2.3e-4 (poses), which
-is JAX's own program-to-program spread in bfloat16 (its
-``avg_final_epochs`` 1 and 2 programs part by as much) and below every
-gap and spread read here. The port's run records the same through its
-own ``compute_optimization_loss``, ``_gradients`` and an optimizer step
-hook.
+recording wrappers (``jax.debug.callback``): at each ``tx.update`` the
+gradient, the parameters and what ``apply_updates`` makes of them, and
+the loss's inputs at every forward. One JAX program costs ~15 s of
+tracing and 20-30 s of XLA compile on this CPU, so the tests make three:
+the 'encoder', 'depth_pred' and 'bottleneck' windows. The 'encoder'
+program is joint (``joint``): the decoder's and the pose net's weights
+are trainable too, and get a zero update, so the window is 'encoder''s
+(its losses and poses equal the bare program's bit for bit) while its
+first step holds the first gradient and Adam update of every weight group:
+those of 'all_depth', 'decoder' and 'pose' (``first_step_runs``). The
+port's own first step in each of those modes is held against them.
 
-What a test compares (``runs``): JAX's bfloat16 run (``jax``), the port's
-bfloat16 run (``port``), the port's float32 run (``port32``), and the
-port's bfloat16 run with the images one f32 ulp up and one down
+What a test compares (``mode_runs``): JAX's bfloat16 run (``jax``), the
+port's bfloat16 run (``port``), the port's float32 run (``port32``), and
+the port's bfloat16 run with the images one f32 ulp up and one down
 (``moved``, its one-ulp spread). JAX's bfloat16-vs-float32 ``gap`` is read
-against the port's float32 run, which stands in for JAX's: a JAX float32
-window costs another ~35 s of XLA compile a mode, and in float32 the two
-packages agree far below any gap here (``test_torch_bf16_pft.py`` holds
-that on the encoder window against a JAX float32 run, and
-``test_torch_pft_jax.py`` the same windows in float64 within 5e-5).
+against the port's float32 run, which stands in for JAX's (a JAX float32
+window would cost another program): before any update the two packages'
+float32 runs agree to within a tenth of every gap read here
+(``test_torch_pft_jax.py`` holds their float32 windows in float64 within
+5e-5); after an update float32 PFT does not reproduce itself, and the gap
+read against the port's float32 window holds that part too.
 """
 
 from __future__ import annotations
@@ -42,6 +44,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 import optax
+import pytest
 import torch
 
 import chip_smoke
@@ -102,8 +105,11 @@ class Record:
         self.dtypes = {}
 
 
-def _jax_optax(rec: Record):
-    """``optax`` with ``adam`` and ``apply_updates`` that record."""
+def _jax_optax(rec: Record, frozen=()):
+    """``optax`` with an ``adam`` that records, at each update, the
+    gradient, the parameters and the parameters its update gives
+    (``apply_updates``); the groups named in ``frozen`` get a zero update
+    (their gradient and the update they would take are recorded)."""
 
     def adam(lr):
         inner = optax.adam(lr)
@@ -113,23 +119,45 @@ def _jax_optax(rec: Record):
                                   jax.tree_util.tree_leaves(grads)}
             rec.dtypes["moments"] = {str(a.dtype) for a in
                                      jax.tree_util.tree_leaves(state)}
-            jax.debug.callback(lambda g, p: (rec.grads.append(_np(g)),
-                                             rec.params.append(_np(p))),
-                               grads, params, ordered=True)
-            return inner.update(grads, state, params)
+            updates, state = inner.update(grads, state, params)
+            jax.debug.callback(
+                lambda g, p, a: (rec.grads.append(_np(g)),
+                                 rec.params.append(_np(p)),
+                                 rec.applied.append(_np(a))),
+                grads, params, optax.apply_updates(params, updates),
+                ordered=True)
+            return {k: jax.tree_util.tree_map(jnp.zeros_like, v)
+                    if k in frozen else v
+                    for k, v in updates.items()}, state
 
         return optax.GradientTransformation(inner.init, update)
 
-    def apply_updates(params, updates):
-        new = optax.apply_updates(params, updates)
-        jax.debug.callback(lambda p: rec.applied.append(_np(p)), new,
-                           ordered=True)
-        return new
-
     shim = types.SimpleNamespace(**{k: getattr(optax, k) for k in dir(optax)
                                     if not k.startswith("__")})
-    shim.adam, shim.apply_updates = adam, apply_updates
+    shim.adam = adam
     return shim
+
+
+def _jax_joint_partition():
+    """JAX's ``partition_params`` for 'encoder' mode with the decoder's and
+    the pose net's weights trainable too (``{"enc", "dec", "pose"}``), so
+    that one program gives every weight mode's first gradient."""
+
+    def partition(mode, depth_params, pose_params, skips=None,
+                  disparities=None):
+        assert mode == "encoder", mode
+        trainable = {"enc": depth_params["encoder"],
+                     "dec": {k: v for k, v in depth_params.items()
+                             if k != "encoder"},
+                     "pose": pose_params}
+
+        def rebuild(t):
+            return (dict(t["dec"], encoder=t["enc"]), t["pose"], skips,
+                    disparities)
+
+        return trainable, rebuild
+
+    return partition
 
 
 def _loss_recorder(rec: Record, original, to_numpy):
@@ -148,11 +176,18 @@ def _loss_recorder(rec: Record, original, to_numpy):
 
 
 def jax_window(mode, compute_dtype, batch, params, stats, epochs,
-               avg_final_epochs, monkeypatch):
+               avg_final_epochs, monkeypatch, joint=False):
     """JAX's ``PFTOptimizer(mode).optimize_window`` jitted, on one window;
-    (result as float64 numpy by ``FIELDS``, Record)."""
+    (result as float64 numpy by ``FIELDS``, Record). With ``joint`` (in
+    'encoder' mode) the decoder's and the pose net's weights are trainable
+    too but frozen (``JOINT``): the window is 'encoder''s, and the Record's
+    first step holds every weight group's gradient and update."""
     rec = Record()
-    monkeypatch.setattr(jax_pft, "optax", _jax_optax(rec))
+    monkeypatch.setattr(jax_pft, "optax", _jax_optax(
+        rec, frozen=("dec", "pose") if joint else ()))
+    if joint:
+        monkeypatch.setattr(jax_pft, "partition_params",
+                            _jax_joint_partition())
     monkeypatch.setattr(jax_pft, "compute_optimization_loss", _loss_recorder(
         rec, jax_pft.compute_optimization_loss,
         lambda f, r: jax.debug.callback(lambda x: f(_np(x)), r,
@@ -173,90 +208,146 @@ def jax_window(mode, compute_dtype, batch, params, stats, epochs,
     return {k: np.asarray(getattr(res, k), np.float64) for k in FIELDS}, rec
 
 
-def _port_trainable_tree(mode, win, tensors):
-    """``tensors`` (by ``partition_params``' names: the trainable tensors
-    or their gradients) as JAX's trainable tree: Flax names and layouts,
-    NHWC skips."""
+def _port_tree(win, tensors):
+    """``tensors`` (by ``partition_params``' names: trainable tensors or
+    their gradients) as JAX's trainable tree: Flax names and layouts under
+    ``enc``, ``dec`` and ``pose``, NHWC skips under ``s3`` and ``s4``."""
     t = {k: v.detach().double() for k, v in tensors.items()}
-    if mode == "depth_pred":
-        return {"disp": t["disp"].numpy()}
-    if mode == "bottleneck":
-        return {k: t[k].permute(0, 2, 3, 1).numpy() for k in ("s3", "s4")}
-    if mode == "pose":
-        return {"pose": _np(pose_to_flax(
-            {k[len("pose."):]: v for k, v in t.items()}))}
-    full = {k: t.get(f"depth.{k}", torch.zeros_like(v)) for k, v in
-            win.depth_net.named_parameters()}
-    depth = _np(depth_to_flax(full)[0])
-    if mode == "encoder":
-        return {"enc": depth["encoder"]}
-    if mode == "decoder":
-        return {"dec": {k: v for k, v in depth.items() if k != "encoder"}}
-    return {"depth": depth}
+    out = {k: t[k].numpy() for k in ("disp",) if k in t}
+    out.update({k: t[k].permute(0, 2, 3, 1).numpy() for k in ("s3", "s4")
+                if k in t})
+    pose = {k[len("pose."):]: v for k, v in t.items() if k.startswith("pose.")}
+    if pose:
+        out["pose"] = _np(pose_to_flax(pose))
+    depth = {k[len("depth."):]: v for k, v in t.items()
+             if k.startswith("depth.")}
+    if depth:
+        full = _np(depth_to_flax({k: depth.get(k, torch.zeros_like(v))
+                                  for k, v in
+                                  win.depth_net.named_parameters()})[0])
+        if any(k.startswith("encoder.") for k in depth):
+            out["enc"] = full["encoder"]
+        if any(not k.startswith("encoder.") for k in depth):
+            out["dec"] = {k: v for k, v in full.items() if k != "encoder"}
+    return out
 
 
-def port_window(mode, compute_dtype, batch, params, stats, epochs,
-                avg_final_epochs, monkeypatch):
-    """The port's ``PFTOptimizer(mode).optimize_window`` on the CPU with
-    the plain sampler; (result as float64 numpy by ``FIELDS``, Record)."""
-    rec = Record()
+def _record_first_step(rec, opt, win, grads, make_optimizer):
+    """The first step's gradient, parameters and the parameters the
+    mode's optimizer (``make_optimizer``, ``PFTOptimizer._make_optimizer``,
+    on copies) steps them to."""
+    names = list(win.trainable)
+    params = list(win.trainable.values())
+    rec.dtypes["grad"] = {str(g.dtype) for g in grads}
+    rec.grads.append(_port_tree(win, dict(zip(names, grads))))
+    rec.params.append(_port_tree(win, win.trainable))
+    copies = [p.detach().clone() for p in params]
+    for c, g in zip(copies, grads):
+        c.grad = g.detach()
+    tx = make_optimizer(opt, copies)
+    tx.step()
+    rec.applied.append(_port_tree(win, dict(zip(names, copies))))
+    rec.dtypes["moments"] = {
+        str(v.dtype) for st in tx.state.values() for v in st.values()
+        if torch.is_tensor(v) and v.is_floating_point()}
+
+
+def _record_loss_inputs(rec, monkeypatch):
     monkeypatch.setattr(pft, "compute_optimization_loss", _loss_recorder(
         rec, pft.compute_optimization_loss,
         lambda f, r: f(jax.tree_util.tree_map(
             lambda t: t.detach().double().numpy(), r))))
-    gradients = pft.PFTOptimizer._gradients
-    make_optimizer = pft.PFTOptimizer._make_optimizer
 
-    def recording_gradients(self, loss, params):
-        grads = gradients(self, loss, params)
-        names = list(self._trainable)
-        rec.dtypes["grad"] = {str(g.dtype) for g in grads}
-        rec.grads.append(_port_trainable_tree(mode, self._win,
-                                              dict(zip(names, grads))))
-        rec.params.append(_port_trainable_tree(mode, self._win,
-                                               self._trainable))
-        return grads
 
-    def recording_optimizer(self, ps):
-        tx = make_optimizer(self, ps)
-
-        def after(opt, *_):
-            rec.applied.append(_port_trainable_tree(mode, self._win,
-                                                    self._trainable))
-            rec.dtypes["moments"] = {
-                str(v.dtype) for st in opt.state.values() for v in
-                st.values() if torch.is_tensor(v) and v.is_floating_point()}
-
-        tx.register_step_post_hook(after)
-        return tx
-
-    monkeypatch.setattr(pft.PFTOptimizer, "_gradients", recording_gradients)
-    monkeypatch.setattr(pft.PFTOptimizer, "_make_optimizer",
-                        recording_optimizer)
-    prepare = pft.PFTOptimizer._prepare
-
-    def recording_prepare(self, batch, device):
-        win = prepare(self, batch, device)
-        self._win, self._trainable = win, win.trainable
-        return win
-
-    monkeypatch.setattr(pft.PFTOptimizer, "_prepare", recording_prepare)
+def _port_optimizer(mode, compute_dtype, params, stats, epochs,
+                    avg_final_epochs):
     depth_sd, pose_sd = from_flax(params, stats)
-    dtype = DTYPES[compute_dtype]
     depth_net, pose_net = build_models(
         Config(compute_dtype=compute_dtype, num_scales=1), device="cpu")
     depth_net.load_state_dict(depth_sd)
     pose_net.load_state_dict(pose_sd)
-    assert depth_net.compute_dtype == dtype
-    opt = pft.PFTOptimizer(
+    assert depth_net.compute_dtype == DTYPES[compute_dtype]
+    return pft.PFTOptimizer(
         Config(compute_dtype=compute_dtype, iterations=ITERS),
         PFTOptions(epochs=epochs, avg_final_epochs=avg_final_epochs,
                    num_source_imgs=S), depth_net, pose_net, mode=mode)
+
+
+def _port_joint_partition(original):
+    """``partition_params`` for 'encoder' mode with the decoder's and the
+    pose net's weights trainable too (their gradients recorded), as
+    ``_jax_joint_partition``; ``port_window`` steps the encoder alone."""
+
+    def partition(mode, depth_net, pose_net, skips=None, disparities=None):
+        assert mode == "encoder", mode
+        trainable, skips, disparities = original(mode, depth_net, pose_net,
+                                                 skips, disparities)
+        extra = {f"depth.{k}": v for k, v in depth_net.named_parameters()
+                 if not k.startswith("encoder.")}
+        extra.update({f"pose.{k}": v for k, v in pose_net.named_parameters()})
+        for v in extra.values():
+            v.requires_grad_(True)
+        return dict(trainable, **extra), skips, disparities
+
+    return partition
+
+
+def port_window(mode, compute_dtype, batch, params, stats, epochs,
+                avg_final_epochs, monkeypatch, joint=False):
+    """The port's ``PFTOptimizer(mode).optimize_window`` on the CPU with
+    the plain sampler; (result as float64 numpy by ``FIELDS``, Record).
+    With ``joint`` the decoder's and the pose net's weights are trainable
+    but never stepped, as in ``jax_window``."""
+    rec = Record()
+    _record_loss_inputs(rec, monkeypatch)
+    gradients = pft.PFTOptimizer._gradients
+    make_optimizer = pft.PFTOptimizer._make_optimizer
+    prepare = pft.PFTOptimizer._prepare
+
+    def recording_prepare(self, batch, device):
+        self._win = prepare(self, batch, device)
+        return self._win
+
+    def recording_gradients(self, loss, ps):
+        grads = gradients(self, loss, ps)
+        if not rec.grads:
+            _record_first_step(rec, self, self._win, grads, make_optimizer)
+        return grads
+
+    def own_optimizer(self, ps):
+        return make_optimizer(self, [p for k, p in self._win.trainable.items()
+                                     if k.startswith("depth.encoder.")])
+
+    monkeypatch.setattr(pft.PFTOptimizer, "_prepare", recording_prepare)
+    monkeypatch.setattr(pft.PFTOptimizer, "_gradients", recording_gradients)
+    if joint:
+        monkeypatch.setattr(pft, "partition_params",
+                            _port_joint_partition(pft.partition_params))
+        monkeypatch.setattr(pft.PFTOptimizer, "_make_optimizer",
+                            own_optimizer)
+    opt = _port_optimizer(mode, compute_dtype, params, stats, epochs,
+                          avg_final_epochs)
     res = opt.optimize_window(batch, device="cpu", sampler=grid_sample_plain)
     monkeypatch.undo()
     rec.dtypes["disp_opt"] = str(res.disp_opt.dtype)
     return {k: torch.as_tensor(getattr(res, k)).double().numpy()
             for k in FIELDS}, rec
+
+
+def port_first_step(mode, batch, params, stats):
+    """The port's bfloat16 ``PFTOptimizer(mode)``'s first step alone (its
+    forward and gradients, and its optimizer's first update on copies):
+    a Record."""
+    rec = Record()
+    opt = _port_optimizer(mode, "bfloat16", params, stats, 2, 1)
+    with pytest.MonkeyPatch.context() as mp:
+        _record_loss_inputs(rec, mp)
+        win = opt._prepare(batch, torch.device("cpu"))
+        loss, _ = opt._forward(win, grid_sample_plain)
+        grads = opt._gradients(loss, list(win.trainable.values()))
+    _record_first_step(rec, opt, win, grads,
+                       pft.PFTOptimizer._make_optimizer)
+    return rec
 
 
 _OFF = dict(l_inverse_reconstruction=False, l_depth_consist=False,
@@ -315,27 +406,51 @@ def leaves_by_group(tree):
 
 
 def mode_runs(mode, epochs, avg_final_epochs, params, stats, batch,
-              jax32=False, jax_run=None):
-    """JAX's bfloat16 window (``jax_run`` where given) and the port's
-    bfloat16, float32 and one-ulp runs of it: {"jax", "port", "port32",
-    "moved": [up, down]}, each a (result, Record) pair; with ``jax32``
-    JAX's float32 window too ("jax32"), the reference of the window's
-    gap."""
-    import pytest
+              joint=False):
+    """JAX's bfloat16 window and the port's bfloat16, float32 and one-ulp
+    runs of it: {"jax", "port", "port32", "moved": [up, down]}, each a
+    (result, Record) pair; ``joint`` as ``jax_window``'s."""
 
     def run(fn, dtype, b):
         with pytest.MonkeyPatch.context() as mp:
             return fn(mode, dtype, b, params, stats, epochs,
-                      avg_final_epochs, mp)
+                      avg_final_epochs, mp, joint=joint)
 
-    runs = {"jax": jax_run or run(jax_window, "bfloat16", batch),
+    return {"jax": run(jax_window, "bfloat16", batch),
             "port": run(port_window, "bfloat16", batch),
             "port32": run(port_window, "float32", batch),
             "moved": [run(port_window, "bfloat16", one_ulp(batch, d))
                       for d in (2.0, -1.0)]}
-    if jax32:
-        runs["jax32"] = run(jax_window, "float32", batch)
-    return runs
+
+
+# the weight groups a mode trains, as JAX's joint trainable tree's keys
+GROUPS = {"all_depth": ("enc", "dec"), "decoder": ("dec",),
+          "pose": ("pose",)}
+
+
+def first_step_runs(joint_runs, mode, params, stats, batch):
+    """``mode``'s first step (a mode that trains weights) as ``mode_runs``
+    gives a window's: the port's own bfloat16 first step in that mode, and
+    the joint 'encoder' runs' first steps cut to the mode's weight groups
+    for JAX, the port's float32 run and the one-ulp runs. At the first step
+    every mode's forward gives the same loss from the same weights (the
+    skips 'decoder' decodes from are the encoder's output, the disparity
+    'pose' holds fixed is the net's), so its gradient is the joint one's
+    cut to its groups, and Adam's update is elementwise."""
+    keys = GROUPS[mode]
+
+    def cut(run):
+        rec, view = run[1], Record()
+        view.loss_inputs, view.dtypes = rec.loss_inputs[:1], rec.dtypes
+        view.grads, view.params, view.applied = (
+            [{k: t[k] for k in keys}] for t in (rec.grads[0], rec.params[0],
+                                                 rec.applied[0]))
+        return None, view
+
+    return {"jax": cut(joint_runs["jax"]),
+            "port": (None, port_first_step(mode, batch, params, stats)),
+            "port32": cut(joint_runs["port32"]),
+            "moved": [cut(m) for m in joint_runs["moved"]]}
 
 
 def rel(a, b) -> float:
@@ -509,16 +624,13 @@ def window_faults(res, rec):
 def assert_window(runs, fraction=WINDOW_FRACTION):
     """Every field of the window's result within ``fraction`` x the
     larger of gap and spread, and each planted fault past its limit; all
-    fields are read before any is asserted. The gap is read against JAX's
-    own float32 window where the runs hold one ("jax32"): after an update
-    of the weights float32 PFT does not reproduce itself (the two
-    packages' float32 encoder windows sit as far apart as the gap,
-    ``test_torch_bf16_pft.py``). Where only activations are trained
-    ('depth_pred', 'bottleneck') the two float32 windows agree: the gaps
-    read against either were equal to three digits, so the port's stands
-    in."""
+    fields are read before any is asserted. The gap is read against the
+    port's float32 window, which stands in for JAX's: after an update the
+    two packages' float32 windows part by about as much as the gap
+    (float32 PFT does not reproduce itself, PERF.md §7), so the gap read
+    here holds that part too."""
     port, jax_res = runs["port"][0], runs["jax"][0]
-    port32 = runs.get("jax32", runs["port32"])[0]
+    port32 = runs["port32"][0]
     faults = window_faults(port, runs["port"][1])
     failed = []
     for f in FIELDS:
@@ -531,20 +643,3 @@ def assert_window(runs, fraction=WINDOW_FRACTION):
             print(f"  planted fault: {fault:.3e}")
             failed += [] if fault > limit else [f"{f} (planted fault)"]
     assert not failed, failed
-
-
-def decoder_view(jax_run):
-    """JAX's 'all_depth' (result, Record) seen as 'decoder' mode's first
-    step: the trees cut to the decoder's weights (``{"dec": ...}``)."""
-    res, rec = jax_run
-    view = Record()
-    view.loss_inputs, view.dtypes = rec.loss_inputs, rec.dtypes
-
-    def cut(trees):
-        return [{"dec": {k: v for k, v in t["depth"].items()
-                         if k != "encoder"}} for t in trees]
-
-    view.grads, view.params, view.applied = (cut(rec.grads),
-                                             cut(rec.params),
-                                             cut(rec.applied))
-    return res, view

@@ -1,8 +1,9 @@
-"""The evaluation path in bfloat16: ``VOEvaluator``, ``evaluate_vo`` and
-``evaluate_depth_eigen`` from a bfloat16 model directory, against the JAX
-package's CLIs on the same directory, on the CPU; and bfloat16 model
-directories crossing between the packages (``evaluate_scannet``:
-``test_torch_bf16_eval_scannet.py``).
+"""The evaluation path in bfloat16: ``VOEvaluator`` and ``evaluate_vo``
+from a bfloat16 model directory, against the JAX package's CLI on the same
+directory, on the CPU; and bfloat16 model directories crossing between
+the packages (``evaluate_depth_eigen`` and ``evaluate_scannet``:
+``test_torch_bf16_eval_depth.py``; ``run_sequential_pft``:
+``test_torch_bf16_seqpft.py``).
 
 The directory, the rule and the one-ulp runs are ``bf16_eval_harness.py``'s
 (``FRACTION`` = 3 x the larger of JAX's bfloat16-vs-float32 gap and the
@@ -26,48 +27,25 @@ planted fault that fails it:
   the wrong sign;
 * saved predictions of bfloat16 nets cross: each package replays the
   other's file to the same errors, bit for bit (the same numpy tail);
-* Eigen (``test_torch_depth_eval_cli.py``'s six frames, JAX with cv2
-  hidden and in one batch: its CLI jits the forward with the weights
-  closed over, which XLA constant-folds for ~50 s a batch shape): the
-  flip-merged scaled disparities (float32 in both packages:
-  ``post_process_disparity``'s float32 ramp promotes the bfloat16
-  disparity, and the ``--save_pred_disps`` file is float32 in both),
-  4.63e-3 / 4.16e-3 / 0 (the depth net rounds its input to bfloat16, so
-  one f32 ulp on it moves nothing: Eigen has no spread), and each metric
-  (relative, against the gap and spread of that metric; rmse 2.43 x its
-  gap, the others 0.05-0.70 x). Planted faults: the disparity not
-  flip-merged; each metric off by a factor 10 (``hold_metrics``);
-* ScanNet: ``test_torch_bf16_eval_scannet.py``.
-* A bfloat16 ``config.json`` with its checkpoint written by the JAX
-  package (``Config.save``, ``train.checkpoint.save_checkpoint``) is read
-  by the port's ``evaluate_vo`` as the same bfloat16 run as the port's
-  own directory (equal results); the port's directory is read by every
-  JAX CLI here; the port's ``import_checkpoint`` writes ``"bfloat16"``,
-  which JAX's ``Config.load`` reads.
+
+Model directories crossing between the packages:
+``test_torch_bf16_model_dirs.py``.
 """
 
 import os
 
-import jax
-import jax.numpy as jnp
+import jax  # noqa: F401  (keeps JAX on the CPU, tests/conftest.py)
 import numpy as np
 import pytest
-import torch
 
 import bf16_eval_harness as eh
 from tcsfm.cli.evaluate_vo import main as jax_vo_main
-from tcsfm.config import Config as JaxConfig
 from tcsfm.eval import vo as jax_vo
-from tcsfm.train import checkpoint as jax_ckpt
-from tcsfm.train.trainer import TrainState as JaxTrainState
-from tcsfm.train.trainer import make_optimizer as jax_make_optimizer
-from tcsfm_torch.cli import evaluate_depth_eigen, evaluate_vo
+from tcsfm_torch.cli import evaluate_vo
 from tcsfm_torch.cli.common import load_config, load_nets
 from tcsfm_torch.config import Config
 from tcsfm_torch.data.synthetic import make_synthetic_sequence
 from tcsfm_torch.eval import vo
-from tcsfm_torch.models.convert import to_flax
-from test_torch_depth_eval_cli import eigen_data, hidden_cv2  # noqa: F401
 from test_torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 ERROR_KEYS = ("errors_unscaled", "errors_dnet", "errors_gt_scaled")
@@ -124,16 +102,6 @@ def port_cli(dirs, tmp_path_factory):
 def _late(a):
     """Every prediction one window late."""
     return np.roll(np.asarray(a), 1, axis=0)
-
-
-def test_nets_compute_in_the_directory_s_dtype(dirs):
-    for dtype, d in dirs.items():
-        depth_net, pose_net = load_nets(d, "cpu")
-        assert depth_net.compute_dtype == pose_net.compute_dtype == \
-            getattr(torch, dtype)
-        assert load_config(d, Config()).compute_dtype == dtype
-        assert JaxConfig.load(os.path.join(d, "config.json")
-                              ).compute_dtype == dtype
 
 
 def test_vo_evaluator_matches_jax(jax_run, port_runs):
@@ -204,101 +172,3 @@ def test_saved_predictions_cross(jax_run, port_cli):
     replay = vo.evaluate_saved_predictions(jax_path, seq, verbose=False)
     for k in ERROR_KEYS:
         np.testing.assert_array_equal(replay[k], ref[k])
-
-
-def test_jax_written_directory_is_the_same_run(dirs, port_cli, tmp_path):
-    """A bfloat16 directory the JAX package writes (its ``Config.save``,
-    its checkpoint of the same weights) runs in the port's ``evaluate_vo``
-    exactly as the port's own directory does."""
-    jdir = str(tmp_path / "jax_dir")
-    jcfg = JaxConfig(compute_dtype="bfloat16", iterations=2,
-                     img_resolution="low")
-    depth_net, pose_net = load_nets(dirs["float32"], "cpu")
-    params, stats = to_flax(depth_net.state_dict(), pose_net.state_dict())
-    params = jax.tree_util.tree_map(jnp.asarray, params)
-    tx = jax_make_optimizer(jcfg, 1)
-    state = JaxTrainState(step=jnp.zeros((), jnp.int32), params=params,
-                          batch_stats=jax.tree_util.tree_map(jnp.asarray,
-                                                             stats),
-                          opt_state=tx.init(params), tx=tx)
-    jax_ckpt.save_checkpoint(jdir, state, epoch=1, best_val_loss=1.0,
-                             cfg=jcfg, is_best=True)
-    with open(os.path.join(jdir, "config.json")) as f:
-        assert '"compute_dtype": "bfloat16"' in f.read()
-    theirs = evaluate_vo.main(["--model_dir", jdir, "--synthetic",
-                               "--device", "cpu"])
-    assert load_nets(jdir, "cpu")[0].compute_dtype == torch.bfloat16
-    np.testing.assert_equal(theirs, port_cli[0])
-
-
-def test_port_import_writes_bfloat16_for_jax(tmp_path):
-    from tcsfm_torch.cli import import_checkpoint
-
-    from test_torch_import_checkpoint import reference_ckpt
-
-    src = str(tmp_path / "best_model.pt")
-    torch.save(reference_ckpt(), src)
-    out = str(tmp_path / "imported")
-    import_checkpoint.main(["--torch_ckpt", src, "--out_dir", out,
-                            "--device", "cpu"])
-    assert JaxConfig.load(os.path.join(out, "config.json")
-                          ).compute_dtype == "bfloat16"
-    assert load_nets(out, "cpu")[0].compute_dtype == torch.bfloat16
-
-
-# --------------------------------------------------------------------------
-# Eigen
-# --------------------------------------------------------------------------
-
-
-def _eigen_args(model_dir, data, npy):
-    return ["--model_dir", model_dir, "--data_dir", data, "--gt_depths",
-            os.path.join(data, "gt_depths.npz"), "--save_pred_disps", npy]
-
-
-@pytest.fixture(scope="module")
-def eigen_runs(dirs, eigen_data, hidden_cv2, tmp_path_factory):  # noqa: F811
-    from tcsfm.cli.evaluate_depth_eigen import main as jax_main
-
-    root = tmp_path_factory.mktemp("eigen_runs")
-
-    def port(dtype, name, **kw):
-        npy = str(root / f"{name}.npy")
-        metrics = evaluate_depth_eigen.main(
-            _eigen_args(dirs[dtype], eigen_data, npy)
-            + ["--device", "cpu", "--batch", "4"])
-        return metrics, np.load(npy)
-
-    npy = str(root / "jax.npy")
-    # one batch of the six frames: the CLI jits its forward with the
-    # weights closed over, which XLA constant-folds for ~50 s a batch shape
-    runs = {"jax": (jax_main(_eigen_args(dirs["bfloat16"], eigen_data, npy)
-                             + ["--batch", "6"]), np.load(npy)),
-            "bfloat16": port("bfloat16", "port"),
-            "float32": port("float32", "port32")}
-    runs["moved"] = []
-    for i, d in enumerate(eh.DIRECTIONS):
-        with eh.nudged(d):
-            runs["moved"].append(port("bfloat16", f"moved{i}"))
-    return runs
-
-
-def test_eigen_matches_jax(dirs, eigen_runs, eigen_data):  # noqa: F811
-    (ref, ref_disps), (ours, disps) = eigen_runs["jax"], eigen_runs["bfloat16"]
-    assert ref_disps.dtype == disps.dtype == np.float32
-    assert disps.shape == ref_disps.shape == (6, 64, 96)
-    depth_net, _ = load_nets(dirs["bfloat16"], "cpu")
-    from tcsfm_torch.data.eigen import EigenDataset
-
-    imgs = torch.from_numpy(np.stack([
-        EigenDataset(eigen_data, mode="test")[i]["target_img"]
-        for i in range(6)]))
-    with torch.no_grad():
-        plain = evaluate_depth_eigen.scaled_disparity(
-            depth_net, imgs, load_config(dirs["bfloat16"], Config()),
-            post_process=False).float().numpy()
-    eh.hold(disps, ref_disps, eigen_runs["float32"][1],
-            [m[1] for m in eigen_runs["moved"]], "Eigen disparities",
-            fault=plain)
-    eh.hold_metrics(ours, ref, eigen_runs["float32"][0],
-                  [m[0] for m in eigen_runs["moved"]], "Eigen")

@@ -1,20 +1,23 @@
-"""PFT in bfloat16: the port's ``PFTOptimizer`` in 'encoder' mode (the
-paper's default) against the JAX package's bfloat16 ``PFTOptimizer``, on
-the CPU, and the two pieces of the port that this comparison repaired.
+"""PFT in bfloat16, the modes that train weights: the port's
+``PFTOptimizer`` in 'encoder' mode (the paper's default) over a whole
+window, and in 'encoder', 'all_depth', 'decoder' and 'pose' modes at their
+first step, against the JAX package's bfloat16 ``PFTOptimizer`` on the
+CPU ('depth_pred' and 'bottleneck': ``test_torch_bf16_pft_leaves.py`` and
+``test_torch_bf16_pft_bottleneck.py``; the two repairs this comparison
+made: ``test_torch_bf16_pft_repairs.py``).
 
 The setting, the runs and the rule are ``bf16_pft_harness.py``'s: one
-window at 64x96, B=2, S=2, 2 iterations, 3 epochs (two Adam steps and the
-evaluation forward), ``avg_final_epochs=2`` (the last two epochs
-averaged, as the CLIs average the last five: one epoch alone doubles the
-poses' gap and spread). Each quantity is held within
-a stated multiple of the larger of JAX's bfloat16-vs-float32 gap and the
-port's one-ulp spread (parity / gap / spread, measured on an x86
-CPU):
+window at 64x96, B=2, S=2, 2 iterations, 2 epochs (one Adam step and the
+evaluation forward; a third epoch costs ~18 s more here). One JAX program
+serves every mode: 'encoder' with the decoder's and the pose net's
+weights trainable but frozen (``joint``), whose first step is every weight
+mode's (``first_step_runs``). Each quantity is held within a stated
+multiple of the larger of JAX's bfloat16-vs-float32 gap (read against the
+port's float32 run) and the port's one-ulp spread. Readings (parity / gap
+/ spread, measured on an x86 CPU):
 
 * the first step (``TERM_FRACTION`` = 10, ``GRAD_FRACTION`` = 2,
-  ``UPDATE_FRACTION`` = 2), the gap read against the port's float32 run
-  (JAX's float32 run lies within 0.1 x the gap of it before any update,
-  asserted):
+  ``UPDATE_FRACTION`` = 2), the same forward in every mode:
   - each loss term, relative: reconstruct_forward 1.54e-3 / 1.76e-3 /
     3.35e-3, reconstruct_inverse 6.94e-4 / 9.21e-4 / 5.02e-4,
     depth_consist 1.50e-3 / 4.77e-4 / 4.19e-3, total 1.36e-3 / 1.33e-3 /
@@ -22,51 +25,39 @@ CPU):
     masked mean whose masks flip pixel by pixel, so one reading of the gap
     or the spread is itself noisy (the 'depth_pred' mode's depth_consist
     reads 5.6 x): hence 10 x. Planted fault: a term's weight 25% off;
-  - the encoder gradient's direction, 1 - cos: 2.54e-2 / 3.32e-2 /
-    2.94e-2. Planted fault: every second leaf zeroed (4.42e-1);
+  - the gradient's direction by weight group, 1 - cos: encoder 2.54e-2 /
+    3.32e-2 / 2.94e-2 ('encoder', 'all_depth'), decoder 1.24e-2 /
+    9.51e-3 / 1.40e-2 ('all_depth', 'decoder'), pose 8.14e-2 / 2.03e-1 /
+    1.79e-1 ('pose'). Planted fault: every second leaf zeroed (4.42e-1,
+    3.15e-1, 4.20e-1);
   - the first Adam update's signs, on the elements whose sign JAX's
-    bfloat16 and the float32 run share (64.8%): 3.51% differ, the port's
-    own spread 5.30%. Planted fault: half the leaves unchanged (58.7%);
-* the window (``WINDOW_FRACTION`` = 3), the gap read against JAX's own
-  float32 window (after an update the two packages' float32 windows part
-  by as much as the gap: losses 8.0e-4, poses 9.2e-2, disparity 3.7e-2;
-  float32 PFT does not reproduce itself, PERF.md §7): losses 2.24e-3 /
-  4.24e-3 / 8.30e-3, poses_opt 1.08e-1 / 8.96e-2 / 1.13e-1, disp_opt
-  3.96e-2 / 7.62e-2 / 6.87e-2, poses_init 6.03e-2 / 6.69e-2 / 5.38e-2,
-  the DNet scales 0.19-0.27 / 0.33-0.45 / 0.09-0.74 (the ground mask's 5
-  degree threshold on normals of a bfloat16 depth flips pixels; the scale
-  is held, not the mask). Planted faults: the losses without their
-  depth-consistency term, the forward and inverse poses swapped, the raw
-  sigmoid in place of the scaled disparity, the scale of a depth taken as
-  metric already (x30).
-
-The repairs, each held bit for bit against JAX (both fail on the parent
-commit, which resized a bfloat16 disparity in float32 and stepped
-bfloat16 leaves with ``torch.optim.Adam``):
-* ``resize_bilinear`` on a bfloat16 disparity ('depth_pred'): JAX's
-  ``jax.image.resize`` contracts one axis, rounds to bfloat16, contracts
-  the other and rounds again, with weights cast to bfloat16; the parent's
-  float32 resize rounded once and differed on 9% (down) and 18% (up) of
-  the elements by one bfloat16 ulp;
-* ``OptaxBF16``, the optimizer of bfloat16 leaves ('depth_pred',
-  'bottleneck'): optax's Adam in bfloat16, one rounding an operation;
-  ``torch.optim.Adam`` differs from it on 0.06% (second step) and 0.15%
-  (third) of the elements.
+    bfloat16 and the float32 run share: encoder 3.51% differ (spread
+    5.30%), decoder 2.88% (4.45%), pose 3.34% (10.58%). Planted fault:
+    half the leaves unchanged (58.7%, 67.0%, 56.8%);
+  - these modes train float32 parameters through bfloat16 convs: their
+    gradients and Adam's moments are float32 in both packages. 'pose'
+    trains the pose net's weights at 64x96, where torch's CPU bfloat16
+    conv backward gives finite weight gradients (ROADMAP §3);
+* the 'encoder' window (``WINDOW_FRACTION`` = 3): losses 1.03e-3 /
+  3.96e-3 / 6.29e-3, poses_opt 1.06e-1 / 8.85e-2 / 1.60e-1, poses_inv_opt
+  8.10e-2 / 1.05e-1 / 1.22e-1, disp_opt 2.85e-2 / 2.49e-2 / 3.07e-2,
+  poses_init 6.03e-2 / 6.69e-2 / 5.38e-2, the DNet scales 0.19 / 0.33 /
+  0.09 (init) and 1.3e-2 / 4.0e-2 / 8.7e-2 (opt; the ground mask's 5
+  degree threshold on normals of a bfloat16 depth flips pixels, so the
+  scale is held, not the mask). Planted faults: the losses without their
+  depth-consistency term (1.29e-1), the forward and inverse poses
+  swapped (0.58-0.66), the raw sigmoid in place of the scaled disparity
+  (0.95), the scale of a depth taken as metric already (x30: 23, 29).
 """
 
 import jax
-import jax.numpy as jnp
 import numpy as np
-import optax
 import pytest
-import torch
 
 import bf16_pft_harness as h
-from tcsfm_torch.config import Config, PFTOptions
-from tcsfm_torch.solver import pft
 from test_torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
-STAND_IN_FRACTION = 0.1
+EPOCHS, AVG_FINAL_EPOCHS = 2, 1
 
 
 @pytest.fixture(scope="module")
@@ -77,19 +68,40 @@ def setting():
 
 @pytest.fixture(scope="module")
 def encoder_runs(setting):
-    return h.mode_runs("encoder", 3, 2, *setting, jax32=True)
+    return h.mode_runs("encoder", EPOCHS, AVG_FINAL_EPOCHS, *setting,
+                       joint=True)
 
 
-def test_encoder_first_step_losses(encoder_runs):
-    h.assert_first_step_losses(encoder_runs)
+@pytest.fixture(scope="module", params=["encoder", "all_depth", "decoder",
+                                        "pose"])
+def first_step(request, encoder_runs, setting):
+    if request.param == "encoder":
+        return encoder_runs
+    return h.first_step_runs(encoder_runs, request.param, *setting)
 
 
-def test_encoder_first_step_gradient(encoder_runs):
-    h.assert_first_step_gradients(encoder_runs)
+def test_first_step_losses(first_step):
+    h.assert_first_step_losses(first_step)
 
 
-def test_encoder_first_update(encoder_runs):
-    h.assert_first_updates(encoder_runs)
+def test_first_step_gradients(first_step):
+    h.assert_first_step_gradients(first_step)
+
+
+def test_first_update(first_step):
+    h.assert_first_updates(first_step)
+
+
+def test_float32_gradients_and_moments(first_step):
+    """These modes train float32 parameters through bfloat16 convs: their
+    gradients and Adam's moments are float32 in both packages, and
+    finite."""
+    jax_rec, port_rec = first_step["jax"][1], first_step["port"][1]
+    assert jax_rec.dtypes["grad"] == {"float32"}
+    assert port_rec.dtypes["grad"] == {"torch.float32"}
+    assert port_rec.dtypes["moments"] == {"torch.float32"}
+    for g in port_rec.grads[0].values():
+        assert all(np.isfinite(a).all() for a in jax.tree_util.tree_leaves(g))
 
 
 def test_encoder_window(encoder_runs):
@@ -98,138 +110,11 @@ def test_encoder_window(encoder_runs):
 
 def test_encoder_dtypes(encoder_runs):
     """The disparity is bfloat16 and the error products float32 in both;
-    the encoder's gradients and Adam's moments float32, as JAX's; the
-    flip-merged disparity float32 (``post_process_disparity``'s float32
-    ramp promotes it, as ``jnp.linspace``'s does)."""
+    the flip-merged disparity float32 (``post_process_disparity``'s
+    float32 ramp promotes it, as ``jnp.linspace``'s does)."""
     jax_rec, port_rec = encoder_runs["jax"][1], encoder_runs["port"][1]
     assert jax_rec.dtypes["disparity"] == "bfloat16"
     assert port_rec.dtypes["disparity"] == "torch.bfloat16"
     assert jax_rec.dtypes["diff_img"] == "float32"
     assert port_rec.dtypes["diff_img"] == "torch.float32"
-    assert jax_rec.dtypes["grad"] == {"float32"}
-    assert port_rec.dtypes["grad"] == {"torch.float32"}
-    assert port_rec.dtypes["moments"] == {"torch.float32"}
     assert port_rec.dtypes["disp_opt"] == "torch.float32"
-
-
-def test_float32_stands_in_for_jax_before_the_first_update(encoder_runs):
-    """The first step's gap is read against the port's float32 run
-    (``bf16_pft_harness``): before any update JAX's own float32 run lies
-    within 0.1 x the gap of it (each first-step loss term, the gradient's
-    direction, the initial poses, loss and DNet scale). After an update the
-    two float32 windows sit as far apart as the gap (losses 8.0e-4, poses
-    9.2e-2, disparity 3.7e-2 against gaps of 5.0e-3, 8.5e-2, 4.9e-2:
-    float32 PFT does not reproduce itself, PERF.md §7), so windows are held
-    against JAX's float32 run itself."""
-    jax32 = encoder_runs["jax32"]
-    terms = {k: h.loss_terms(encoder_runs[k][1].loss_inputs[0])
-             for k in ("jax", "port32", "jax32")}
-    pairs = [(abs(terms["port32"][k] - j32) / abs(j32),
-              abs(terms["jax"][k] - terms["port32"][k])
-              / abs(terms["port32"][k]))
-             for k, j32 in terms["jax32"].items() if j32 != 0.0]
-    g = h.first_step_gradients(encoder_runs)["encoder"][0]
-    g32 = h.leaves_by_group(jax32[1].grads[0])["encoder"][0]
-    pairs.append((h.one_minus_cos(g["port32"], g32),
-                  h.one_minus_cos(g["jax"], g["port32"])))
-    port32, jax16 = encoder_runs["port32"][0], encoder_runs["jax"][0]
-    for f in ("poses_init", "poses_inv_init", "scale_init"):
-        pairs.append((h.rel(port32[f], jax32[0][f]),
-                      h.rel(jax16[f], port32[f])))
-    pairs.append((h.rel(port32["losses"][0], jax32[0]["losses"][0]),
-                  h.rel(jax16["losses"][0], port32["losses"][0])))
-    for apart, gap in pairs:
-        print(f"float32 port vs JAX {apart:.3e}, gap {gap:.3e}")
-    assert all(apart <= STAND_IN_FRACTION * gap for apart, gap in pairs)
-
-
-RESIZE_SHAPES = [((6, 64, 96), (16, 24)), ((6, 16, 24), (64, 96)),
-                 ((4, 192, 640), (48, 160)), ((4, 48, 160), (192, 640)),
-                 ((2, 64, 64), (16, 16)), ((2, 30, 50), (7, 13)),
-                 ((2, 64, 96), (64, 24))]
-
-
-@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
-@pytest.mark.parametrize("shape,size", RESIZE_SHAPES)
-def test_resize_matches_jax(shape, size, dtype):
-    """``resize_bilinear`` against ``jax.image.resize(..., "bilinear")``
-    jitted: equal in bfloat16, bit for bit (down and up by 4 at 64x96 and
-    192x640, a square's tie of contraction orders, odd sizes, one axis
-    alone); within 4 float32 ulps in float32 (the sums' order)."""
-    rng = np.random.RandomState(sum(shape) + sum(size))
-    x = (0.02 + 0.3 * rng.rand(*shape, 1)).astype(np.float32)
-    jx = jnp.asarray(x).astype(dtype)
-    ref = np.asarray(jax.jit(lambda a: jax.image.resize(
-        a, (shape[0], *size, 1), "bilinear"))(jx).astype(jnp.float32))
-    tx = torch.from_numpy(np.asarray(jx.astype(jnp.float32))).to(
-        getattr(torch, dtype))
-    ours = pft.resize_bilinear(tx, *size)
-    assert ours.dtype == tx.dtype and ours.shape == (shape[0], *size, 1)
-    ours = ours.float().numpy()
-    if dtype == "bfloat16":
-        np.testing.assert_array_equal(ours, ref)
-    else:
-        np.testing.assert_allclose(ours, ref, rtol=4.8e-7, atol=1e-9)
-
-
-def _optax_steps(kind, p0, grads, lr):
-    tx = getattr(optax, kind)(lr)
-
-    @jax.jit
-    def step(p, st, g):
-        u, st = tx.update(g, st, p)
-        return optax.apply_updates(p, u), st
-
-    p, st, out = p0, tx.init(p0), []
-    for g in grads:
-        p, st = step(p, st, g)
-        out.append(np.asarray(p.astype(jnp.float32)))
-    return out
-
-
-@pytest.mark.parametrize("kind", ["adam", "sgd"])
-def test_bf16_leaves_step_as_optax(kind):
-    """The optimizer ``PFTOptimizer`` gives bfloat16 leaves (the
-    'depth_pred' disparities, the 'bottleneck' skips) takes optax's steps
-    bit for bit over three steps: values in [0.01, 0.31] (PFT's
-    disparities), lr 2e-4, gradients from 1e-6 to 1e-2 (Adam) or 0.1 to
-    10 (SGD), so that some updates round away and some do not. ``torch.optim.Adam`` differs on
-    ~0.1% of the elements from the second step on (asserted: the check
-    sees it)."""
-    rng = np.random.RandomState(0)
-    n, lr = 100000, 2e-4
-    p0 = jnp.asarray((0.01 + 0.3 * rng.rand(n)).astype(np.float32)).astype(
-        jnp.bfloat16)
-    # Adam's step is ~lr whatever the gradient; SGD's is lr x g
-    lo, hi = (-6, -2) if kind == "adam" else (-1, 1)
-    grads = [jnp.asarray((rng.randn(n) * 10 ** rng.uniform(lo, hi, n))
-                         .astype(np.float32)).astype(jnp.bfloat16)
-             for _ in range(3)]
-    ref = _optax_steps(kind, p0, grads, lr)
-
-    def torch_steps(make):
-        leaf = torch.from_numpy(np.asarray(p0.astype(jnp.float32))).to(
-            torch.bfloat16).requires_grad_(True)
-        tx, out = make([leaf]), []
-        for g in grads:
-            leaf.grad = torch.from_numpy(np.asarray(
-                g.astype(jnp.float32))).to(torch.bfloat16)
-            tx.step()
-            out.append(leaf.detach().float().numpy().copy())
-        return out
-
-    opt = pft.PFTOptimizer(Config(), PFTOptions(lr=lr, optimizer=kind),
-                           None, None)
-    ours = torch_steps(opt._make_optimizer)
-    moved = [float(np.mean(r != np.asarray(p0.astype(jnp.float32))))
-             for r in ref]
-    print(f"{kind}: share of elements moved after each step {moved}")
-    assert 0.05 < min(moved) and max(moved) < 0.95
-    for step, (a, b) in enumerate(zip(ours, ref)):
-        np.testing.assert_array_equal(a, b, err_msg=f"step {step}")
-    if kind == "adam":
-        plain = torch_steps(lambda ps: torch.optim.Adam(
-            ps, lr=lr, betas=(0.9, 0.999), eps=1e-8))
-        differ = [float(np.mean(a != b)) for a, b in zip(plain, ref)]
-        print(f"torch.optim.Adam against optax: differ on {differ}")
-        assert differ[0] == 0.0 and differ[2] > 1e-4

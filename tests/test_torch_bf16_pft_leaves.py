@@ -1,12 +1,14 @@
 """PFT in bfloat16 on bfloat16 leaves: the port's 'depth_pred' mode (the
-1/4-resolution disparities trained) and 'bottleneck' mode (the two
-deepest skips trained) against the JAX package's bfloat16
-``PFTOptimizer``, on the CPU, over a whole window.
+1/4-resolution disparities trained) here, and 'bottleneck' mode (the two
+deepest skips trained) in ``test_torch_bf16_pft_bottleneck.py`` with these
+checks, each against the JAX package's bfloat16 ``PFTOptimizer``, on the
+CPU, over a whole window (one JAX program a file).
 
 The setting, the runs and the rule are ``bf16_pft_harness.py``'s (one
 window at 64x96, B=2, S=2, 2 iterations, 3 epochs, ``avg_final_epochs``
-2), the bounds those of ``test_torch_bf16_pft.py``: loss terms at 10 x,
-gradient directions and update signs at 2 x, the window at 3 x the larger
+2: two Adam steps, since optax's bfloat16 moments part from torch's Adam
+from the second on), the bounds those of ``test_torch_bf16_pft.py``:
+loss terms at 10 x, gradient directions and update signs at 2 x, the window at 3 x the larger
 of JAX's bfloat16-vs-float32 gap and the port's one-ulp spread, each with
 its planted fault; the gap read against the port's float32 window, which
 in these modes equals JAX's float32 window far below the gap (the gaps
@@ -41,9 +43,13 @@ import bf16_pft_harness as h
 from test_torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 
-@pytest.fixture(scope="module", params=["depth_pred", "bottleneck"])
+EPOCHS, AVG_FINAL_EPOCHS = 3, 2
+
+
+@pytest.fixture(scope="module", params=["depth_pred"])
 def runs(request):
-    return h.mode_runs(request.param, 3, 2, *h.weights(), h.window())
+    return h.mode_runs(request.param, EPOCHS, AVG_FINAL_EPOCHS,
+                       *h.weights(), h.window())
 
 
 def test_first_step_losses(runs):
